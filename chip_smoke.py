@@ -42,7 +42,7 @@ BF16_FLOP_S = 989e12           # dense bf16 tensor-core peak
 F32_FLOP_S = 67e12             # float32 outside the tensor cores
 
 # tolerances of the kernel-vs-plain checks
-TOL_BF16 = 2e-2                # bf16 outputs (abs and rel)
+TOL_BF16 = (2e-3, 2e-2)        # bf16 outputs (abs, rel)
 TOL_STATE = (1e-4, 1e-3)       # the delta rule's float32 state (abs, rel)
 # first-token logits through kernels vs plain versions, bf16 model: the
 # largest difference may be this fraction of the largest |logit|
@@ -102,10 +102,16 @@ def check_kernels(torch, dev):
     def err(a, b):
         return float((a.float() - b.float()).abs().max())
 
+    def atol_needed(got, want, rtol=TOL_BF16[1]):
+        """The least atol with which ``got`` passes at ``rtol``."""
+        d = (got.float() - want.float()).abs() - rtol * want.float().abs()
+        return max(0.0, float(d.max()))
+
     def close(name, got, want, atol, rtol):
         if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
             fail(f"{name} disagrees with its plain version: max abs error "
-                 f"{err(got, want):.3e} (atol {atol}, rtol {rtol})")
+                 f"{err(got, want):.3e} (atol {atol}, rtol {rtol}; atol "
+                 f"needed {atol_needed(got, want, rtol):.3e})")
         return err(got, want)
 
     out = {}
@@ -116,17 +122,16 @@ def check_kernels(torch, dev):
     scale = Dk ** -0.5
     o = flash_attention(q, k, v, causal=True, scale=scale)
     torch.cuda.synchronize()
-    e1 = close("flash_attention", o,
-               flash_attention_ref(q, k, v, causal=True, scale=scale),
-               TOL_BF16, TOL_BF16)
+    o_ref = flash_attention_ref(q, k, v, causal=True, scale=scale)
+    e1 = close("flash_attention", o, o_ref, *TOL_BF16)
     # a chunk of 2048 queries over 4096 prior keys (q_offset path)
     qc = randn(1, H, 2048, Dk)
     kc, vc = randn(1, H, 6144, Dk), randn(1, H, 6144, Dv)
     oc = flash_attention(qc, kc, vc, causal=True, scale=scale, q_offset=4096)
     torch.cuda.synchronize()
-    e2 = close("flash_attention (q_offset)", oc,
-               flash_attention_ref(qc, kc, vc, causal=True, scale=scale,
-                                   q_offset=4096), TOL_BF16, TOL_BF16)
+    oc_ref = flash_attention_ref(qc, kc, vc, causal=True, scale=scale,
+                                 q_offset=4096)
+    e2 = close("flash_attention (q_offset)", oc, oc_ref, *TOL_BF16)
     S = 2048
     pairs = S * (S + 1) // 2
     bnd = _bound(_nbytes(q, k, v, o), 2 * H * pairs * (Dk + Dv), BF16_FLOP_S)
@@ -134,6 +139,7 @@ def check_kernels(torch, dev):
         source="src/repro_torch/csrc/flash_attn.cu",
         replaces="src/repro/kernels/flash_attn.py:119",
         max_abs_err=max(e1, e2),
+        atol_needed=max(atol_needed(o, o_ref), atol_needed(oc, oc_ref)),
         ms=_ms(lambda: flash_attention(q, k, v, causal=True, scale=scale), 10),
         plain_ms=_ms(lambda: flash_attention_ref(q, k, v, causal=True,
                                                  scale=scale), 3),
@@ -153,9 +159,8 @@ def check_kernels(torch, dev):
     scale = 192 ** -0.5
     od = decode_attention(qd, kd, vd, lens, scale=scale)
     torch.cuda.synchronize()
-    e = close("decode_attention", od,
-              decode_attention_ref(qd, kd, vd, lens, scale=scale),
-              TOL_BF16, TOL_BF16)
+    od_ref = decode_attention_ref(qd, kd, vd, lens, scale=scale)
+    e = close("decode_attention", od, od_ref, *TOL_BF16)
     keys = int(lens.sum())
     mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None]
     bnd = _bound(_nbytes(qd, od, lens) + keys * (Dk + Dv) * 2,
@@ -163,7 +168,7 @@ def check_kernels(torch, dev):
     out["decode_attention"] = dict(
         source="src/repro_torch/csrc/decode_attn.cu",
         replaces="src/repro/kernels/decode_attn.py:94",
-        max_abs_err=e,
+        max_abs_err=e, atol_needed=atol_needed(od, od_ref),
         ms=_ms(lambda: decode_attention(qd, kd, vd, lens, scale=scale), 20),
         plain_ms=_ms(lambda: decode_attention_ref(qd, kd, vd, lens,
                                                   scale=scale), 3),
@@ -193,8 +198,7 @@ def check_kernels(torch, dev):
     o2, st2 = plain_delta()
     valid = (torch.arange(S, device=dev)[None, :] < dl[:, None])[:, None]
     valid = valid.expand(B, H, S)
-    e_o = close("delta_chunked_fused (o)", o[valid], o2[valid], TOL_BF16,
-                TOL_BF16)
+    e_o = close("delta_chunked_fused (o)", o[valid], o2[valid], *TOL_BF16)
     close("delta_chunked_fused (state)", st, st2, *TOL_STATE)
     rows = int(dl.sum()) * H
     chunks = sum(-(-int(n) // 64) for n in dl.tolist()) * H
@@ -204,7 +208,7 @@ def check_kernels(torch, dev):
     out["delta_chunked_fused"] = dict(
         source="src/repro_torch/csrc/delta.cu",
         replaces="src/repro/kernels/delta.py:218",
-        max_abs_err=e_o,
+        max_abs_err=e_o, atol_needed=atol_needed(o[valid], o2[valid]),
         ms=_ms(lambda: delta_chunked_fused(qn, kn, vn, la, beta, dl, s0), 5),
         plain_ms=_ms(plain_delta, 2),
         bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
@@ -223,7 +227,7 @@ def check_kernels(torch, dev):
     out["quantize_int8_fused"] = dict(
         source="src/repro_torch/csrc/quantize.cu",
         replaces="src/repro/kernels/quantize.py:78",
-        max_abs_err=err(qq, qr),
+        max_abs_err=err(qq, qr), atol_needed=0.0,
         ms=_ms(lambda: quantize_int8_fused(x), 50),
         plain_ms=_ms(lambda: quantize_int8_ref(x), 20),
         bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
@@ -371,7 +375,8 @@ def main():
 
     kernels = check_kernels(torch, dev)
     for name, k in kernels.items():
-        print(f"check {name}: max_abs_err {k['max_abs_err']:.3e}, "
+        print(f"check {name}: max_abs_err {k['max_abs_err']:.3e} (atol "
+              f"needed at rtol {TOL_BF16[1]}: {k['atol_needed']:.3e}), "
               f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound "
               f"{k['bound_ms']:.4f} ms by {k['bound_by']})", flush=True)
     torch.cuda.empty_cache()
@@ -393,7 +398,7 @@ def main():
                     max_abs_err=k["max_abs_err"], ms=k["ms"],
                     plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
                     bound_by=k["bound_by"], library_ms=k["library_ms"],
-                    shape=k["shape"])
+                    atol_needed=k["atol_needed"], shape=k["shape"])
                for name, k in kernels.items()]
     print(json.dumps({"main_path": summary}))
     print(card)

@@ -17,7 +17,8 @@
 // of K and V once into shared memory and scores it against all G heads, so
 // the cache is read Hq / G = 4 times (through L2) rather than 64 times as a
 // block per (row, head) would.  Splitting the key axis (flash-decoding)
-// gives enough blocks to fill 132 SMs when there are few slots and long
+// gives enough blocks to fill the SMs (about two blocks each; the wrapper
+// reads the count from the device) when there are few slots and long
 // caches; a second small kernel merges the splits' (max, sum, accumulator)
 // triples.  Keys at or past lengths[b], or before lengths[b] - window, are
 // masked; a split with no live key contributes nothing.

@@ -65,15 +65,16 @@ encode_kernel(const float* __restrict__ x, long long n,
 }  // namespace
 
 // x (n,) float32 -> q (n,) int8, scale (1,) float32.  amax_bits is one
-// uint32 of caller-allocated scratch (zeroed here on the stream).
+// uint32 of caller-allocated scratch (zeroed here on the stream); sms is the
+// device's multiprocessor count, which caps the grid at 8 blocks per SM.
 PRFAAS_API int prfaas_quantize_int8(const void* x, void* q, void* scale,
-                                    void* amax_bits, long long n,
+                                    void* amax_bits, long long n, int sms,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(amax_bits, 0, sizeof(unsigned int), s);
   if (err != cudaSuccess) return err;
   const int blocks = (int)(n > 0 ? (n + NT * 8 - 1) / (NT * 8) : 1);
-  const int grid = blocks < 132 * 8 ? blocks : 132 * 8;
+  const int grid = blocks < sms * 8 ? blocks : sms * 8;
   absmax_kernel<<<grid, NT, 0, s>>>(static_cast<const float*>(x), n,
                                     static_cast<unsigned int*>(amax_bits));
   err = cudaGetLastError();

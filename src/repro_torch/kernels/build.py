@@ -37,7 +37,7 @@ _SIGNATURES = {
     "prfaas_flash_attention": [_P] * 4 + [_I] * 10 + [_F, _I, _P],
     "prfaas_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _I, _I, _I, _P],
     "prfaas_delta_fused": [_P] * 9 + [_I] * 6 + [_P],
-    "prfaas_quantize_int8": [_P, _P, _P, _P, _L, _P],
+    "prfaas_quantize_int8": [_P, _P, _P, _P, _L, _I, _P],
 }
 
 _lib = None

@@ -10,7 +10,6 @@ import torch
 
 from repro_torch.kernels import build as _build
 
-_SMS = 132              # H100 SXM streaming multiprocessors
 _KEYS_PER_SPLIT = 512   # fewest keys worth a split of their own
 
 
@@ -73,7 +72,8 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
         scale = 1.0 / (Dk ** 0.5)
     G = _heads_per_block(Hq // Hkv, Dv)
     blocks = B * (Hq // G)
-    splits = max(1, min(-(-2 * _SMS // max(blocks, 1)),
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = max(1, min(-(-2 * sms // max(blocks, 1)),
                         -(-S // _KEYS_PER_SPLIT)))
     split_len = -(-S // splits)
     out = torch.empty((B, Hq, Dv), dtype=q.dtype, device=q.device)

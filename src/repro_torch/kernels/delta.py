@@ -14,6 +14,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build as _build
 
+# chunk length of both paths; csrc/delta.cu compiles it in (its C)
+CHUNK = 64
+
 
 def mask_padded(lengths, S: int, log_a, k, beta):
     """Neutralize rows at or past each row's valid length (decay -> 1,
@@ -25,16 +28,16 @@ def mask_padded(lengths, S: int, log_a, k, beta):
     return log_a, k, beta
 
 
-def delta_chunked_ref(q, k, v, log_a, beta, initial_state, *, chunk: int = 64):
+def delta_chunked_ref(q, k, v, log_a, beta, initial_state):
     """WY-form chunked delta rule, float32 state.  q, k: (B, H, S, dk);
     v: (B, H, S, dv); log_a, beta: (B, H, S); initial_state (B, H, dk, dv).
-    Returns (o (B, H, S, dv) in q's dtype, final state float32).  The
-    per-chunk unit-lower-triangular inverse is the reference's Neumann
-    product."""
+    Returns (o (B, H, S, dv) in q's dtype, final state float32).  Chunks
+    are ``CHUNK`` rows (fewer when S is shorter); the per-chunk
+    unit-lower-triangular inverse is the reference's Neumann product."""
     B, H, S, dk = q.shape
     dv = v.shape[-1]
     dtype = q.dtype
-    chunk = min(chunk, S)
+    chunk = min(CHUNK, S)
     pad = (-S) % chunk
     if pad:
         q, k, v = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))

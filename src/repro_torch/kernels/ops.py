@@ -3,9 +3,9 @@ tensors and its plain PyTorch version on CPU tensors.
 
 The path follows the device of the tensors given, never a global switch:
 a CUDA tensor always reaches the kernel, which raises if it cannot build or
-launch (there is no fallback).  ``use_kernel=False`` selects the plain
-version on any device; only tests and ``chip_smoke.py``'s comparison phase
-pass it.
+launch (there is no fallback).  ``use_kernel=False`` on the model's ops
+selects the plain version on any device; only tests and ``chip_smoke.py``'s
+comparison phase pass it.
 """
 from __future__ import annotations
 
@@ -38,8 +38,9 @@ def attention(q, k, v, *, causal=True, window=0, scale=None, q_offset=0,
 
 
 def delta(q, k, v, log_a, beta, initial_state=None, *, lengths=None,
-          chunk=64, use_kernel=True):
-    """Gated delta rule over right-padded rows.  Returns (o, final_state).
+          use_kernel=True):
+    """Gated delta rule over right-padded rows, in chunks of
+    ``delta.CHUNK`` on both paths.  Returns (o, final_state).
 
     ``lengths`` (B,): valid rows per batch row (all S when None).  Rows at
     or past it are neutralized (decay -> 1, k/beta -> 0): in-kernel on
@@ -53,8 +54,7 @@ def delta(q, k, v, log_a, beta, initial_state=None, *, lengths=None,
         lengths = torch.full((B,), S, dtype=torch.int32, device=q.device)
     if _plain(use_kernel, q):
         log_a, k, beta = _delta.mask_padded(lengths, S, log_a, k, beta)
-        return _delta.delta_chunked_ref(q, k, v, log_a, beta, initial_state,
-                                        chunk=chunk)
+        return _delta.delta_chunked_ref(q, k, v, log_a, beta, initial_state)
     return _delta.delta_chunked_fused(
         q.contiguous(), k.contiguous(), v.contiguous(),
         log_a.float().contiguous(), beta.float().contiguous(),
@@ -75,10 +75,10 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window=0, scale=None,
         window=window, scale=scale)
 
 
-def quantize_wire(x, *, use_kernel=True):
+def quantize_wire(x):
     """Per-tensor symmetric int8 of a float32 leaf -> (q int8, scale
     float32 0-d), byte-identical on both paths."""
-    if _plain(use_kernel, x):
+    if x.device.type == "cpu":
         return _quant.quantize_int8_ref(x)
     return _quant.quantize_int8_fused(x.contiguous())
 

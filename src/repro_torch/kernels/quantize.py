@@ -31,10 +31,11 @@ def quantize_int8_fused(x):
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scale = torch.empty((1,), dtype=torch.float32, device=x.device)
     amax = torch.empty((1,), dtype=torch.int32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     lib = _build.library()
     err = lib.prfaas_quantize_int8(x.data_ptr(), q.data_ptr(),
                                    scale.data_ptr(), amax.data_ptr(),
-                                   x.numel(), _build.stream_ptr(x))
+                                   x.numel(), sms, _build.stream_ptr(x))
     _build.check(name, err)
     _build.LAUNCHES[name] += 1
     return q, scale.reshape(())

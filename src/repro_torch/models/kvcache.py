@@ -27,7 +27,7 @@ def cache_num_bytes(caches) -> int:
     return int(sum(t.numel() * t.element_size() for t in tree_leaves(caches)))
 
 
-def quantize_cache_for_wire(caches, *, use_kernel: bool = True):
+def quantize_cache_for_wire(caches):
     """int8-quantize the K/V/latent leaves (per-tensor symmetric).  The
     encode runs through ``ops.quantize_wire``: the CUDA kernel for a CUDA
     cache, the byte-identical plain version for a CPU one.  Returns (wire
@@ -35,7 +35,7 @@ def quantize_cache_for_wire(caches, *, use_kernel: bool = True):
     def enc(name, leaf):
         if name in WIRE_LEAVES and leaf.dtype in (torch.bfloat16,
                                                   torch.float32):
-            q, scale = ops.quantize_wire(leaf.float(), use_kernel=use_kernel)
+            q, scale = ops.quantize_wire(leaf.float())
             return {"q": q, "scale": scale.to(leaf.dtype)}
         return leaf
 

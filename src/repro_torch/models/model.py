@@ -186,7 +186,7 @@ class Model:
                             gc[key][name][r].copy_(t)
         return self._logits(params, x)[:, 0], caches
 
-    def init_cache(self, batch_size: int, capacity: int, device=None):
+    def init_cache(self, batch_size: int, capacity: int, device):
         """Zeroed decode cache buffers of sequence capacity ``capacity``."""
         cfg = self.cfg
         dt = torch_dtype(cfg)

@@ -9,7 +9,7 @@ from repro_torch.configs.base import AttentionSpec, ModelConfig
 from repro_torch.models.model import torch_dtype
 
 
-def zero_request_payload(cfg: ModelConfig, L: int, device=None):
+def zero_request_payload(cfg: ModelConfig, L: int, device):
     """Zeroed prefill caches of one request (leaves (R, 1, L, ...)) in the
     trimmed format decode admission consumes."""
     dt = torch_dtype(cfg)

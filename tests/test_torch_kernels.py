@@ -25,7 +25,7 @@ from repro.kernels.flash_attn import flash_attention as jax_flash_kernel
 from repro.kernels.quantize import quantize_int8_fused as jax_quant_kernel
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.decode_attn import decode_attention
-from repro_torch.kernels.delta import delta_chunked_fused
+from repro_torch.kernels.delta import CHUNK, delta_chunked_fused
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.quantize import quantize_int8_fused
 
@@ -106,12 +106,12 @@ def test_delta_fused_plain_matches_reference(B, H, S, dk, dv, lens):
     q, k, v, la, beta, s0 = _delta_inputs(2, B, H, S, dk, dv)
     lengths = np.array(lens, np.int32)
     o, st = ops.delta(*map(torch.from_numpy, (q, k, v, la, beta, s0)),
-                      lengths=torch.from_numpy(lengths), chunk=32)
+                      lengths=torch.from_numpy(lengths))
     jargs = [jnp.asarray(x) for x in (q, k, v, la, beta)]
     po, pst = jax_delta_kernel(*jargs, jnp.asarray(lengths), jnp.asarray(s0),
-                               chunk=32, interpret=True)
+                               chunk=CHUNK, interpret=True)
     jo, jst = jops.delta(*jargs, jnp.asarray(s0),
-                         lengths=jnp.asarray(lengths), chunk=32)
+                         lengths=jnp.asarray(lengths), chunk=CHUNK)
     valid = np.arange(S)[None, :] < lengths[:, None]          # (B, S)
     sel = np.broadcast_to(valid[:, None], (B, H, S))
     for want in (po, jo):
