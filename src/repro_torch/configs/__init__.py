@@ -1,11 +1,12 @@
 """Architecture registry of the port: the architectures it can serve."""
-from repro_torch.configs import kimi_linear_1t
+from repro_torch.configs import kimi_linear_1t, mistral_nemo_12b
 from repro_torch.configs.base import (AttentionSpec, BlockSpec, FFNSpec,
                                       GroupSpec, LinearSpec, ModelConfig,
                                       reduce_for_smoke)
 
 ARCH_BUILDERS = {
     "kimi-linear-1t": kimi_linear_1t.build,
+    "mistral-nemo-12b": mistral_nemo_12b.build,
 }
 
 

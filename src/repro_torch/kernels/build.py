@@ -25,7 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attn.cu", "decode_attn.cu", "delta.cu", "quantize.cu")
+SOURCES = ("flash_attn.cu", "decode_attn.cu", "delta.cu", "quantize.cu",
+           "paged_decode_attn.cu", "paged_prefill_attn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,9 +36,11 @@ LAUNCHES: collections.Counter = collections.Counter()
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "prfaas_flash_attention": [_P] * 4 + [_I] * 10 + [_F, _I, _P],
-    "prfaas_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _I, _I, _I, _P],
+    "prfaas_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
     "prfaas_delta_fused": [_P] * 9 + [_I] * 6 + [_P],
     "prfaas_quantize_int8": [_P, _P, _P, _P, _L, _I, _P],
+    "prfaas_paged_decode_attention": [_P] * 8 + [_I] * 10 + [_F, _I, _I, _P],
+    "prfaas_paged_prefill_attention": [_P] * 7 + [_I] * 10 + [_F, _I, _P],
 }
 
 _lib = None

@@ -48,6 +48,24 @@ def _heads_per_block(group: int, Dv: int) -> int:
     raise ValueError(f"value dim {Dv} exceeds 8192")
 
 
+def split_plan(q, Hkv: int, Dv: int, S: int):
+    """Launch plan shared by the dense and paged decode kernels: G query
+    heads per block, the number of key splits per row (about two blocks per
+    SM, none shorter than ``_KEYS_PER_SPLIT`` of the S key positions), and
+    the float32 (accumulator, max/sum) scratch of the splits."""
+    B, Hq, _ = q.shape
+    G = _heads_per_block(Hq // Hkv, Dv)
+    blocks = B * (Hq // G)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = max(1, min(-(-2 * sms // max(blocks, 1)),
+                        -(-S // _KEYS_PER_SPLIT)))
+    part_acc = torch.empty((B, Hq, splits, Dv), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B, Hq, splits, 2), dtype=torch.float32,
+                          device=q.device)
+    return G, splits, part_acc, part_ml
+
+
 def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
                      scale: float | None = None):
     """The CUDA kernel: same contract as :func:`decode_attention_ref`, on
@@ -70,25 +88,16 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
         raise ValueError(f"{name}: head dims Dk {Dk}, Dv {Dv} too large")
     if scale is None:
         scale = 1.0 / (Dk ** 0.5)
-    G = _heads_per_block(Hq // Hkv, Dv)
-    blocks = B * (Hq // G)
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits = max(1, min(-(-2 * sms // max(blocks, 1)),
-                        -(-S // _KEYS_PER_SPLIT)))
-    split_len = -(-S // splits)
     out = torch.empty((B, Hq, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    part_acc = torch.empty((B, Hq, splits, Dv), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B, Hq, splits, 2), dtype=torch.float32,
-                          device=q.device)
+    G, splits, part_acc, part_ml = split_plan(q, Hkv, Dv, S)
     lib = _build.library()
     err = lib.prfaas_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
         part_ml.data_ptr(), B, Hq, Hkv, S, Dk, Dv, G, int(window),
-        float(scale), splits, split_len, _build.dtype_code(q),
+        float(scale), splits, _build.dtype_code(q),
         _build.stream_ptr(q))
     _build.check(name, err)
     _build.LAUNCHES[name] += 1

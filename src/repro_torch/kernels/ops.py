@@ -14,6 +14,8 @@ import torch
 from repro_torch.kernels import decode_attn as _decode
 from repro_torch.kernels import delta as _delta
 from repro_torch.kernels import flash_attn as _flash
+from repro_torch.kernels import paged_decode_attn as _pdecode
+from repro_torch.kernels import paged_prefill_attn as _pprefill
 from repro_torch.kernels import quantize as _quant
 
 
@@ -73,6 +75,35 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window=0, scale=None,
         q.contiguous(), k_cache.contiguous(), v_cache.contiguous(),
         lengths.to(device=q.device, dtype=torch.int32).contiguous(),
         window=window, scale=scale)
+
+
+def paged_decode_attention(q, k_pages, v_pages, tables, lengths, *,
+                           window=0, scale=None, use_kernel=True):
+    """One-query attention over a shared page pool. q: (B,Hq,Dk); pools
+    (Hkv,P,T,Dk/Dv); tables (B,N) physical page ids; lengths (B,) keys per
+    row (context + 1)."""
+    if _plain(use_kernel, q):
+        return _pdecode.paged_decode_attention_ref(
+            q, k_pages, v_pages, tables, lengths, window=window, scale=scale)
+    return _pdecode.paged_decode_attention(
+        q.contiguous(), k_pages.contiguous(), v_pages.contiguous(),
+        tables.to(device=q.device, dtype=torch.int32).contiguous(),
+        lengths.to(device=q.device, dtype=torch.int32).contiguous(),
+        window=window, scale=scale)
+
+
+def paged_prefill_attention(q, k_pages, v_pages, tables, k_suf, v_suf, *,
+                            scale=None, use_kernel=True):
+    """A suffix chunk's queries (B,Hq,C,Dk) over the N prior pool pages of
+    ``tables`` (B,N), all visible, then the dense suffix keys (B,Hkv,Ssuf,
+    Dk/Dv), causally (query row i at suffix position Ssuf - C + i)."""
+    if _plain(use_kernel, q):
+        return _pprefill.paged_prefill_attention_ref(
+            q, k_pages, v_pages, tables, k_suf, v_suf, scale=scale)
+    return _pprefill.paged_prefill_attention(
+        q.contiguous(), k_pages.contiguous(), v_pages.contiguous(),
+        tables.to(device=q.device, dtype=torch.int32).contiguous(),
+        k_suf.contiguous(), v_suf.contiguous(), scale=scale)
 
 
 def quantize_wire(x):

@@ -8,10 +8,16 @@ Python loop over the repeats replaces ``lax.scan``.  Caches keep the
 reference's keys and shapes: ``{"groups": [{"b0": {"state", "conv"}, ...,
 "b3": {"ckv", "kpe"}}]}`` with stacked ``(R, B, S, ...)`` leaves.
 
+Full-attention blocks cache ``{"k", "v"}`` (R, B, S, Hkv, D).  With
+``tables`` (paged KV, ``repro_torch.models.paged``) the attention leaves
+of the caches are shared page pools instead, addressed through per-slot
+block tables.
+
 The serving path's MoE is always the exact dropless form (the reference's
 inference default).  Architectures whose blocks the port does not serve
-yet (encoders, image prefixes, cross-attention, shared blocks, mixers other
-than KDA/GDN and MLA) raise ``NotImplementedError`` at construction.
+yet (encoders, image prefixes, cross-attention, shared blocks, sliding
+windows, mixers other than KDA/GDN, GQA and MLA) raise
+``NotImplementedError`` at construction.
 """
 from __future__ import annotations
 
@@ -53,6 +59,24 @@ def _stack(trees):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
+# leaves of a table-direct prior (``paged.build_prior``) that pass through a
+# chunk unchanged: the whole stacked pool, never restacked
+_PRIOR_LEAVES = ("pk", "pv", "tbl", "off")
+
+
+def _stack_reps(reps, prior):
+    """Stack per-repeat block caches; the table-direct leaves of ``prior``
+    (the group's stacked input caches) are carried as they are."""
+    out = {}
+    for key in reps[0]:
+        keep = {n: prior[key][n] for n in _PRIOR_LEAVES
+                if prior is not None and n in prior[key]}
+        fresh = [{n: v for n, v in rc[key].items() if n not in keep}
+                 for rc in reps]
+        out[key] = {**_stack(fresh), **keep}
+    return out
+
+
 class Model:
     """Functional model over a parameter tree; ``use_kernels=False`` routes
     every kernel op to its plain PyTorch version on any device (for the
@@ -83,10 +107,12 @@ class Model:
         kw = dict(use_kernels=self.use_kernels)
         if isinstance(m, AttentionSpec):
             if cache is None:
-                y, c = attn_mod.mla_forward(p["mixer"], h, m, positions, **kw)
+                y, c = attn_mod.attention_forward(p["mixer"], h, m,
+                                                  positions, **kw)
             else:
-                y, c = attn_mod.mla_forward_chunk(p["mixer"], h, m, positions,
-                                                  cache, **kw)
+                y, c = attn_mod.attention_forward_chunk(p["mixer"], h, m,
+                                                        positions, cache,
+                                                        **kw)
         else:
             y, c = lin_mod.linear_forward(
                 p["mixer"], h, m,
@@ -95,12 +121,18 @@ class Model:
                 lengths=lengths, **kw)
         return self._ffn(spec, p, x + y), c
 
-    def _decode_block(self, spec: BlockSpec, p, x, cache, lengths):
+    def _decode_block(self, spec: BlockSpec, p, x, cache, lengths,
+                      tables=None, page_tokens=None, capacity=None):
         h = rms_norm(x, p["ln1"], self.cfg.norm_eps)
         m = spec.mixer
-        if isinstance(m, AttentionSpec):
-            y, c = attn_mod.mla_decode(p["mixer"], h, m, cache, lengths,
-                                       use_kernels=self.use_kernels)
+        if isinstance(m, AttentionSpec) and tables is not None:
+            y, c = attn_mod.attention_decode_paged(
+                p["mixer"], h, m, cache, lengths, tables,
+                page_tokens=page_tokens, capacity=capacity,
+                use_kernels=self.use_kernels)
+        elif isinstance(m, AttentionSpec):
+            y, c = attn_mod.attention_decode(p["mixer"], h, m, cache, lengths,
+                                             use_kernels=self.use_kernels)
         else:
             y, c = lin_mod.linear_decode(p["mixer"], h, m, cache)
         return self._ffn(spec, p, x + y), c
@@ -120,7 +152,8 @@ class Model:
                         b, pr[key], x, positions, lengths,
                         None if cr is None else cr[key])
                 reps.append(rc)
-            out.append(_stack(reps))
+            out.append(_stack_reps(reps, None if caches is None
+                                   else caches[gi]))
         return x, out
 
     def _logits(self, params, x):
@@ -168,10 +201,16 @@ class Model:
         x_last = hidden[torch.arange(B, device=hidden.device), idx][:, None]
         return self._logits(params, x_last)[:, 0]
 
-    def decode_step(self, params, tokens, caches, lengths):
+    def decode_step(self, params, tokens, caches, lengths, tables=None,
+                    page_tokens=None, capacity=None):
         """tokens (B,) int; lengths (B,) context sizes.  Returns (logits
         (B, V) float32, caches).  The caches are updated in place (the
-        stacked buffers of ``caches`` are the returned ones)."""
+        stacked buffers of ``caches`` are the returned ones).
+
+        ``tables``: paged-KV block tables ``{"seq": (B, capacity / T)
+        int32}`` on the device; ``caches`` then holds page-pool leaves
+        (``models/paged.py``) and ``page_tokens`` / ``capacity`` give the
+        page size and the slot capacity."""
         x = params["embed"][tokens[:, None]]
         for gi, (g, gp) in enumerate(zip(self.cfg.groups, params["groups"])):
             gc = caches["groups"][gi]
@@ -180,7 +219,8 @@ class Model:
                 for bi, b in enumerate(g.blocks):
                     key = f"b{bi}"
                     cur = _rep(gc[key], r)
-                    x, new = self._decode_block(b, pr[key], x, cur, lengths)
+                    x, new = self._decode_block(b, pr[key], x, cur, lengths,
+                                                tables, page_tokens, capacity)
                     for name, t in new.items():
                         if t.data_ptr() != cur[name].data_ptr():
                             gc[key][name][r].copy_(t)
@@ -201,10 +241,14 @@ class Model:
             R = g.repeats
             for bi, b in enumerate(g.blocks):
                 m = b.mixer
-                if isinstance(m, AttentionSpec):
+                if isinstance(m, AttentionSpec) and m.kind == "mla":
                     gc[f"b{bi}"] = {
                         "ckv": zeros((R, B, capacity, m.mla_kv_rank), dt),
                         "kpe": zeros((R, B, capacity, m.mla_rope_dim), dt)}
+                elif isinstance(m, AttentionSpec):
+                    shape = (R, B, capacity, m.kv_heads, m.head_dim)
+                    gc[f"b{bi}"] = {"k": zeros(shape, dt),
+                                    "v": zeros(shape, dt)}
                 else:
                     c = {"state": zeros((R, B, m.heads, m.key_dim,
                                          m.value_dim), torch.float32)}
@@ -228,7 +272,8 @@ def _pad_seq(x, to: int):
 
 def prepare_decode_caches(cfg: ModelConfig, caches, capacity: int):
     """Place prefill-produced caches into decode buffers of ``capacity``:
-    MLA latents are zero-padded to capacity, O(1) states pass through."""
+    GQA K/V and MLA latents are zero-padded to capacity, O(1) states pass
+    through."""
     out = []
     for g, gc in zip(cfg.groups, caches["groups"]):
         placed = {}

@@ -82,7 +82,17 @@ def _moe(dr, lead, d, spec: FFNSpec):
 def _block(dr, lead, d, spec: BlockSpec):
     p = {"ln1": dr.const(lead + (d,), 1.0)}
     m = spec.mixer
-    if isinstance(m, AttentionSpec):          # MLA
+    if isinstance(m, AttentionSpec) and m.kind != "mla":     # GQA
+        H, Hkv, D = m.q_heads, m.kv_heads, m.head_dim
+        mx = {"wq": _linear(dr, lead, d, H * D),
+              "wk": _linear(dr, lead, d, Hkv * D),
+              "wv": _linear(dr, lead, d, Hkv * D),
+              "wo": _linear(dr, lead, H * D, d)}
+        if m.qkv_bias:
+            for name in ("wq", "wk", "wv"):
+                mx[name]["b"] = dr.const(lead + (mx[name]["w"].shape[-1],),
+                                         0.0, dr.dtype)
+    elif isinstance(m, AttentionSpec):        # MLA
         H, D, R, Rp = m.q_heads, m.head_dim, m.mla_kv_rank, m.mla_rope_dim
         mx = {}
         if m.mla_q_rank:

@@ -14,10 +14,19 @@ int8-quantizes it for the wire when ``wire_compression`` is on (through the
 quantize kernel on the card), submits the flow on the link, dequantizes for
 admission and accounts TTFT.
 
+Device prefix reuse (``paged_kv=True``): each region's ``DecodeEngine``
+runs the paged layout over one ``BlockPool`` it shares with the region's
+prefix cache.  Prompt pages register at admission (``insert_device``) and
+stay LRU-resident after the request retires; ``_route`` pins the pages of
+a matching prefix for a request prefilled at home, which then prefills
+only its uncached suffix over those pages.  Offloaded prefills ship the
+full cache as before and, with wire compression, admit in their int8
+form, dequantized inside the page write.
+
 The Router prices prefill with the reference's analytic profile of the
 named chip (``chip="h200"`` by default, so routes match the reference); an
-H100 profile comes with calibration, a later slice.  Paged KV, speculative
-decode, sampling and calibration raise ``NotImplementedError``.
+H100 profile comes with calibration, a later slice.  Speculative decode,
+sampling and calibration raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.configs.base import AttentionSpec
 from repro_torch.core.blockpool import BlockPool
 from repro_torch.core.hardware import CHIPS, AnalyticProfile
 from repro_torch.core.kv_manager import GlobalKVManager
@@ -39,8 +49,8 @@ from repro_torch.models import Model
 from repro_torch.models.kvcache import (cache_num_bytes,
                                         dequantize_cache_from_wire, kv_bytes,
                                         quantize_cache_for_wire)
-from repro_torch.models.paged import zero_request_payload
-from repro_torch.serving.api import Request, Response
+from repro_torch.models.paged import paged_layout, zero_request_payload
+from repro_torch.serving.api import PagePin, Request, Response
 from repro_torch.serving.engine import (DecodeEngine, PrefillEngine,
                                         RegionScheduler, trim_request_cache)
 
@@ -63,7 +73,7 @@ class DeploymentConfig:
     tbt_slo_s: float = 0.0             # TBT SLO for attainment (0 = off)
     block_tokens: int = 16
     pool_blocks: int = 4096
-    paged_kv: bool = False             # paged device KV (not ported)
+    paged_kv: bool = False             # paged device KV + prefix resume
     layerwise_pipeline: bool = True
     wire_compression: bool = False     # int8 KV quantization on the wire
     adapt_thresholds: bool = True      # live per-home congestion feedback
@@ -75,7 +85,7 @@ class DeploymentConfig:
 class CrossDCDeployment:
     def __init__(self, model: Model, params, cfg: DeploymentConfig,
                  router_cfg: Optional[RouterConfig] = None):
-        for flag, on in (("paged_kv", cfg.paged_kv), ("spec_k", cfg.spec_k),
+        for flag, on in (("spec_k", cfg.spec_k),
                          ("temperature", cfg.temperature > 0),
                          ("calibration", cfg.calibration)):
             if on:
@@ -90,17 +100,31 @@ class CrossDCDeployment:
                          max_bucket=cfg.max_prefill_bucket)
         self.prfaas = PrefillEngine(model, params, **bucket_kw)
         self.pd_prefill = PrefillEngine(model, params, **bucket_kw)
+        # a paged region's decode engine (page storage) and prefix cache
+        # (page index) share one BlockPool: a cache hit names device pages
+        pools: Dict[str, BlockPool] = {}
+        if cfg.paged_kv:
+            for name in self.pd_names:
+                pools[name] = BlockPool(cfg.pool_blocks, cfg.block_tokens,
+                                        1 << 16)
         self.decoders: Dict[str, DecodeEngine] = {
             name: DecodeEngine(model, params, cfg.decode_slots, cfg.capacity,
-                               block_size=cfg.decode_block_size)
+                               block_size=cfg.decode_block_size,
+                               paged=cfg.paged_kv, pool=pools.get(name),
+                               page_tokens=cfg.block_tokens)
             for name in self.pd_names}
         self.schedulers: Dict[str, RegionScheduler] = {
             name: RegionScheduler(self.pd_prefill, self.decoders[name],
                                   max_prefill_batch=cfg.max_prefill_batch,
                                   on_unit_done=self._unit_done)
             for name in self.pd_names}
-        self.caches: Dict[str, HybridPrefixCache] = {
-            name: self._new_cache() for name in [PRFAAS] + self.pd_names}
+        self.caches: Dict[str, HybridPrefixCache] = {PRFAAS: self._new_cache()}
+        for name in self.pd_names:
+            if cfg.paged_kv:
+                self.caches[name] = self._paged_cache(pools[name])
+                self._wire_admission(name)
+            else:
+                self.caches[name] = self._new_cache()
         self.kv = GlobalKVManager()
         for name, cache in self.caches.items():
             self.kv.register_cluster(name, cache)
@@ -141,6 +165,25 @@ class CrossDCDeployment:
             BlockPool(self.cfg.pool_blocks, self.cfg.block_tokens, 1 << 16),
             0, 1)
 
+    def _paged_cache(self, pool: BlockPool) -> HybridPrefixCache:
+        """Region prefix cache over the decode engine's page pool: entries
+        are registered at admission (``insert_device``) and name live
+        device pages, so a match is device-resumable."""
+        lay = paged_layout(self.model.cfg, self.cfg.capacity,
+                           self.cfg.block_tokens, 1)
+        has_state = any(not isinstance(b.mixer, AttentionSpec)
+                        for g in self.model.cfg.groups for b in g.blocks)
+        return HybridPrefixCache(pool, 0, 1, has_full_attn=lay.seq_cols > 0,
+                                 has_linear=has_state)
+
+    def _wire_admission(self, name: str):
+        cache, dec = self.caches[name], self.decoders[name]
+        dec.on_admit = lambda req, L, ids, snap: cache.insert_device(
+            [int(t) for t in req.tokens], ids, snap)
+        # offloaded prefills arriving as int8 wire pytrees admit as wire:
+        # the dequantization happens inside the page write
+        dec.wire_admission = bool(self.cfg.wire_compression)
+
     # ------------------------------------------------------------- routing
     def _route(self, req: Request) -> RoutingDecision:
         home = req.home or self.pd_names[0]
@@ -159,6 +202,15 @@ class CrossDCDeployment:
         req.decision = decision
         req.route = decision.target
         req.cached_tokens = decision.cached_tokens
+        if self.cfg.paged_kv and decision.target == home:
+            # local prefill on a paged region: pin the device-resident
+            # prefix pages (the references pass to the engine at admission)
+            # so only the uncached suffix is computed.  An offloaded
+            # prefill cannot use home device pages and ships the full cache.
+            c, ids, snap = self.caches[home].match_resume(toks)
+            if c:
+                self.decoders[home].pool.retain(ids)
+                req.device_pin = PagePin(c, ids, snap)
         return decision
 
     # ------------------------------------------------------------ lifecycle
@@ -207,9 +259,16 @@ class CrossDCDeployment:
                                self.virtual_now,
                                ramp_end=self.virtual_now)))
             flows[r.rid] = fl
-            self.kv.record_prefill(cluster, list(map(int, r.tokens)))
-            if self.cfg.wire_compression and cluster == PRFAAS:
-                # dense admission takes the dequantized cache
+            if not (self.cfg.paged_kv and cluster != PRFAAS):
+                # paged regions register their device pages at admission
+                # (insert_device); metadata-only blocks here would be
+                # matched by match_resume as if they held KV
+                self.kv.record_prefill(cluster, list(map(int, r.tokens)))
+            if (self.cfg.wire_compression and cluster == PRFAAS
+                    and not getattr(self.decoders[r.home], "wire_admission",
+                                    False)):
+                # dense admission takes the dequantized cache; paged homes
+                # with wire admission dequantize inside the page write
                 payload = dequantize_cache_from_wire(payload)
             entries.append((r, int(first[i]), payload, len(r.tokens)))
         if any(flows.values()):
@@ -306,6 +365,17 @@ class CrossDCDeployment:
                 "max_admit_wait": sched.max_admit_wait,
                 **self._tbt_stats(dec.tbt_s, self.cfg.tbt_slo_s),
             }
+            if self.cfg.paged_kv:
+                pool = dec.pool
+                per_region[name]["pool"] = {
+                    **pool.stats, "resident": pool.resident,
+                    "used_blocks": pool.used_blocks,
+                    "num_blocks": pool.num_blocks}
+                # device bytes held by LRU-resident prefix pages
+                # (reclaimable on demand, reusable on a hit)
+                per_region[name]["resident_kv_bytes"] = \
+                    pool.resident * dec.page_bytes
+                per_region[name]["page_fail_retires"] = dec.page_fail_retires
         busy = sum(d.slot_busy_s for d in self.decoders.values())
         span = sum(self.cfg.decode_slots * s.wall_s
                    for s in self.schedulers.values())
@@ -325,6 +395,7 @@ class CrossDCDeployment:
             "kv_manager": {"rebalanced": self.kv.rebalanced,
                            "cross_transfers": self.kv.cross_transfers,
                            "clusters": self.kv.stats()},
+            "paged_kv": self.cfg.paged_kv,
             "truncations": sum(d.truncations for d in self.decoders.values()),
             "occupancy": busy / span if span > 0 else 0.0,
             "goodput_tok_s": sum(s.goodput_tok_s()

@@ -1,6 +1,7 @@
 """Shared set-up of the port's parity tests (``tests/test_torch_*.py``):
-one smoke ``kimi-linear-1t`` in both frameworks, the reference's params
-carried into the port, and leaf-by-leaf tree comparison."""
+one smoke architecture (``kimi-linear-1t`` unless named) in both
+frameworks, the reference's params carried into the port, and
+leaf-by-leaf tree comparison."""
 import dataclasses
 
 import jax
@@ -29,9 +30,9 @@ def with_q_rank(cfg, rank: int):
     return dataclasses.replace(cfg, groups=groups)
 
 
-def configs(q_rank: int = 0):
-    """(reference config, port config), float32 smoke size."""
-    jcfg, tcfg = jax_smoke_config(ARCH), get_smoke_config(ARCH)
+def configs(q_rank: int = 0, arch: str = ARCH):
+    """(reference config, port config) of ``arch``, float32 smoke size."""
+    jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
     if q_rank:
         jcfg, tcfg = with_q_rank(jcfg, q_rank), with_q_rank(tcfg, q_rank)
     assert jcfg.dtype == tcfg.dtype == "float32"

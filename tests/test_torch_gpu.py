@@ -24,6 +24,10 @@ from repro_torch.kernels.decode_attn import (decode_attention,
 from repro_torch.kernels.delta import (delta_chunked_fused, delta_chunked_ref,
                                        mask_padded)
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+from repro_torch.kernels.paged_decode_attn import (
+    paged_decode_attention, paged_decode_attention_ref)
+from repro_torch.kernels.paged_prefill_attn import (
+    paged_prefill_attention, paged_prefill_attention_ref)
 from repro_torch.kernels.quantize import quantize_int8_fused, quantize_int8_ref
 
 pytestmark = pytest.mark.gpu
@@ -144,3 +148,90 @@ def test_ops_route_cuda_tensors_to_kernels(cuda):
                                     "decode_attention": 1,
                                     "quantize_int8_fused": 1,
                                     "delta_chunked_fused": 1}
+
+
+def _paged_pools(g, dev, dtype, B, Hkv, T, N, Dk, Dv, lengths):
+    """Pools of distinct random pages per row, the rest of each table on a
+    sink page, and NaN everywhere a row must not read: the sink page, the
+    pages no table names and the rows of each last page past its length."""
+    P = B * N + 2
+    sink = P - 1
+    kp = _randn(g, (Hkv, P, T, Dk), dtype, dev)
+    vp = _randn(g, (Hkv, P, T, Dv), dtype, dev)
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(3))
+    tables = torch.full((B, N), sink, dtype=torch.int32)
+    used = []
+    for b, L in enumerate(lengths):
+        live = -(-L // T)
+        ids = perm[b * N:b * N + live]
+        tables[b, :live] = ids.to(torch.int32)
+        used += ids.tolist()
+        if L % T:
+            kp[:, int(ids[-1]), L % T:] = float("nan")
+            vp[:, int(ids[-1]), L % T:] = float("nan")
+    dead = torch.ones(P, dtype=torch.bool)
+    dead[used] = False
+    kp[:, dead.to(dev)] = float("nan")
+    vp[:, dead.to(dev)] = float("nan")
+    return kp, vp, tables.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,T,N,Dk,Dv,window,lengths", [
+    (3, 8, 2, 16, 5, 64, 64, 0, (80, 1, 37)),
+    (2, 16, 1, 16, 20, 536, 472, 0, (320, 101)),     # absorbed-MLA shape
+    (2, 4, 4, 8, 7, 32, 32, 20, (56, 23)),           # sliding window
+    (4, 32, 8, 16, 40, 128, 128, 0, (640, 17, 300, 16)),   # GQA shape
+])
+def test_paged_decode_matches_plain(cuda, dtype, B, Hq, Hkv, T, N, Dk, Dv,
+                                    window, lengths):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    kp, vp, tables = _paged_pools(g, cuda, dtype, B, Hkv, T, N, Dk, Dv,
+                                  lengths)
+    q = _randn(g, (B, Hq, Dk), dtype, cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got = paged_decode_attention(q, kp, vp, tables, lens, window=window)
+    torch.cuda.synchronize()
+    want = paged_decode_attention_ref(q, kp, vp, tables, lens, window=window)
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,C,T,N,Ssuf,D", [
+    (2, 4, 2, 40, 16, 3, 40, 32),
+    (1, 4, 1, 64, 16, 5, 150, 64),       # chunk past the suffix's start
+    (1, 32, 8, 128, 16, 8, 256, 128),    # GQA shape
+])
+def test_paged_prefill_matches_plain(cuda, dtype, B, Hq, Hkv, C, T, N, Ssuf,
+                                     D):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    kp, vp, tables = _paged_pools(g, cuda, dtype, B, Hkv, T, N, D, D,
+                                  [N * T] * B)
+    q = _randn(g, (B, Hq, C, D), dtype, cuda)
+    ks = _randn(g, (B, Hkv, Ssuf, D), dtype, cuda)
+    vs = _randn(g, (B, Hkv, Ssuf, D), dtype, cuda)
+    got = paged_prefill_attention(q, kp, vp, tables, ks, vs)
+    torch.cuda.synchronize()
+    want = paged_prefill_attention_ref(q, kp, vp, tables, ks, vs)
+    assert torch.isfinite(got).all()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_paged_ops_route_cuda_tensors_to_kernels(cuda):
+    build.reset_launches()
+    g = torch.Generator(device=cuda).manual_seed(7)
+    kp = _randn(g, (2, 5, 16, 16), torch.float32, cuda)
+    tables = torch.tensor([[0, 3], [1, 2]], dtype=torch.int32, device=cuda)
+    q = _randn(g, (2, 4, 16), torch.float32, cuda)
+    ops.paged_decode_attention(q, kp, kp, tables,
+                               torch.tensor([20, 9], device=cuda))
+    qc = _randn(g, (2, 4, 8, 16), torch.float32, cuda)
+    ks = _randn(g, (2, 2, 8, 16), torch.float32, cuda)
+    ops.paged_prefill_attention(qc, kp, kp, tables, ks, ks)
+    assert dict(build.LAUNCHES) == {"paged_decode_attention": 1,
+                                    "paged_prefill_attention": 1}

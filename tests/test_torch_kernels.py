@@ -189,7 +189,9 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serving, repro_torch.launch.serve, "
-            "repro_torch.params; "
+            "repro_torch.params, repro_torch.models.paged, "
+            "repro_torch.kernels.paged_decode_attn, "
+            "repro_torch.kernels.paged_prefill_attn; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
