@@ -9,8 +9,8 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
   1. print the card's name and power limit (``nvidia-smi``);
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, one process
      per source, all at once);
-  3. hold each of the six kernels against its plain PyTorch version on the
-     card at the main paths' full-width shapes, and time kernel, plain
+  3. hold each of the seven kernels against its plain PyTorch version on
+     the card at the main paths' full-width shapes, and time kernel, plain
      version and (for the attention kernels) PyTorch's SDPA as a yardstick;
   4. drive the main paths, each with every kernel launch counted from 0,
      through ``CrossDCDeployment`` serving prompts of 100-12000 tokens
@@ -23,16 +23,24 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
        * ``mistral-nemo-12b`` at full width and depth (40 layers, ~24.5 GB
          of bf16 weights), paged, where the later turn resumes from the
          device pages of its cached prefix and prefills only its suffix;
-     random weights from a seed, the kimi weights freed before mistral's
-     load;
+       * ``zamba2-1.2b`` at full width and depth (32 Mamba2 layers and a
+         shared attention + FFN block invoked 6 times, ~2.5 GB of bf16
+         weights), dense and then paged, with a page-aligned 4992-token
+         session whose later turn, paged, pins 4992 cached tokens (pool
+         pages and the Mamba2 state snapshot) and prefills 600;
+     random weights from a seed, each model's weights freed before the
+     next one's load;
   5. compare logits through the kernels with those through the plain
      versions (largest difference within 2 % of the largest |logit|): one
      prefill batch of kimi in bf16; one prefill batch and one paged decode
-     step of mistral-nemo-12b, recorded in bf16 and held in float32 (its
-     40 bf16 layers compound rounding flips to ~2 % by themselves); time
-     the MLA paged decode's whole-pool [ckv, kpe] concatenation against a
-     decode step; and profile one paged decode block of mistral-nemo-12b
-     (``torch.profiler``: device busy time and its largest kernels).
+     step of mistral-nemo-12b and of zamba2-1.2b, recorded in bf16 and held
+     in float32 (over their 38-40 layers bf16 rounding flips compound by
+     themselves: ~2 % on mistral-nemo, ~11 % on zamba2's prefill, on an
+     H100); time the MLA paged decode's whole-pool [ckv, kpe]
+     concatenation against a decode step; and profile one paged decode
+     block of mistral-nemo-12b and of zamba2-1.2b, and one 4096-token
+     prefill of zamba2-1.2b (``torch.profiler``: device busy time and the
+     largest kernels).
 
 The last lines are the main paths' summary, the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": ...}``.
@@ -245,8 +253,52 @@ def check_kernels(torch, dev):
         bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
         shape="x (4096,472) f32 -> int8 + scale, byte-identical")
 
+    out.update(check_gla_kernel(torch, dev, g, randn, close, atol_needed))
     out.update(check_paged_kernels(torch, dev, g, randn, close, atol_needed))
     return out
+
+
+def check_gla_kernel(torch, dev, g, randn, close, atol_needed):
+    """Phase 3, gated linear attention: the zamba2 Mamba2 prefill shape (H
+    = 32, dk = 64, dv = 128), ragged lengths and a nonzero initial state,
+    against its plain version."""
+    from repro_torch.kernels.gla import (gla_chunked_fused, gla_chunked_ref,
+                                         mask_padded)
+
+    B, H, S, dk, dv = 2, 32, 4096, 64, 128
+    q = randn(B, H, S, dk)
+    k = randn(B, H, S, dk, scale=dk ** -0.5)
+    v = randn(B, H, S, dv)
+    la = -2.0 * torch.rand((B, H, S), generator=g, device=dev) ** 3
+    s0 = randn(B, H, dk, dv, dtype=torch.float32, scale=0.5)
+    lens = torch.tensor([4096, 2500], dtype=torch.int32, device=dev)
+    o, st = gla_chunked_fused(q, k, v, la, lens, s0)
+    torch.cuda.synchronize()
+
+    def plain():
+        la_m, k_m = mask_padded(lens, S, la, k)
+        return gla_chunked_ref(q, k_m, v, la_m, s0)
+
+    o2, st2 = plain()
+    valid = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None]
+    valid = valid.expand(B, H, S)
+    e_o = close("gla_chunked_fused (o)", o[valid], o2[valid], *TOL_BF16)
+    close("gla_chunked_fused (state)", st, st2, *TOL_STATE)
+    rows = int(lens.sum()) * H
+    chunks = sum(-(-int(n) // 64) for n in lens.tolist()) * H
+    # causal pairs of q k^T and A v, then q S and the state update
+    per_chunk = 64 * 65 // 2 * 2 * (dk + dv) + 2 * (2 * 64 * dk * dv)
+    bnd = _bound(rows * ((2 * dk + 2 * dv) * 2 + 4) + _nbytes(s0, st, lens),
+                 chunks * per_chunk, BF16_FLOP_S)
+    return {"gla_chunked_fused": dict(
+        source="src/repro_torch/csrc/gla.cu",
+        replaces="src/repro/kernels/gla.py:185",
+        max_abs_err=e_o, atol_needed=atol_needed(o[valid], o2[valid]),
+        ms=_ms(lambda: gla_chunked_fused(q, k, v, la, lens, s0), 10),
+        plain_ms=_ms(plain, 3),
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+        shape="q,k (2,32,4096,64) v (2,32,4096,128) bf16, log_a f32, state "
+              "(2,32,64,128) f32 nonzero, lengths 4096, 2500")}
 
 
 def _paged_tables(torch, dev, g, lens, T, N, P):
@@ -368,14 +420,15 @@ def check_paged_kernels(torch, dev, g, randn, close, atol_needed):
     return out
 
 
-def main_path(torch, dev, cfg, params, *, paged: bool):
+def main_path(torch, dev, cfg, params, *, paged: bool, session_len=5000):
     """Phase 4: the PrfaaS serving loop, every kernel launch counted from 0:
     prompts of 100-12000 tokens through both routes with int8 wire
-    compression, then a later turn of the 5000-token session.  Paged: each
-    region's decode engine runs on pool pages it shares with its prefix
-    cache, and the later turn resumes from the device pages of its prefix
-    where the architecture allows (page-aligned state snapshots for linear
-    mixers, so never on kimi's 5000-token prompt)."""
+    compression, then a 600-token later turn of the ``session_len``-token
+    session.  Paged: each region's decode engine runs on pool pages it
+    shares with its prefix cache, and the later turn resumes from the
+    device pages of its prefix where the architecture allows (page-aligned
+    state snapshots for linear mixers, so never on kimi's 5000-token
+    prompt, and on zamba2's 4992-token one)."""
     import numpy as np
 
     from repro_torch.kernels import build
@@ -388,10 +441,10 @@ def main_path(torch, dev, cfg, params, *, paged: bool):
         decode_slots=8, capacity=16384, decode_block_size=8,
         min_prefill_bucket=128, max_prefill_bucket=4096, paged_kv=paged))
     rng = np.random.default_rng(0)
-    lens = [100, 700, 1500, 2500, 3800, 5000, 9000, 12000, 300]
+    lens = [100, 700, 1500, 2500, 3800, session_len, 9000, 12000, 300]
     prompts = [rng.integers(0, cfg.vocab_size, (L,)).astype(np.int32)
                for L in lens]
-    # a later turn of the 5000-token session: its prefix is cached
+    # a later turn of the session: its prefix is cached
     ext = np.concatenate([prompts[5], rng.integers(0, cfg.vocab_size, (600,))
                           .astype(np.int32)])
     batches = [[Request(rid=i, tokens=t, max_new_tokens=16)
@@ -602,13 +655,39 @@ def mla_concat_cost(torch, dev, cfg, params):
             "mla_concat_share": cat_ms * n_mla / step_ms}
 
 
+def _profiled(torch, fn):
+    """Host wall of one ``fn()`` after a warm-up, then one more under
+    ``torch.profiler``: the device's busy time (the sum of its kernels),
+    its share of the wall, and the five kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()                               # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        fail("the profiler recorded no device time")
+    busy = sum(ms for _, ms, _ in kernels)
+    top = sorted(kernels, key=lambda k: -k[1])[:5]
+    return {"wall_ms": wall_ms, "device_busy_ms_profiled": busy,
+            "device_busy_share": busy / wall_ms,
+            "top_kernels": [{"name": n[:80], "ms": ms, "launches": c}
+                            for n, ms, c in top]}
+
+
 def profile_decode_block(torch, dev, cfg, params):
     """Where a paged decode block's time goes: one block of 8 slots at 4000
-    tokens each under ``torch.profiler``, with the host wall time, the
-    device's busy time (the sum of its kernels) and the five kernels that
-    take most of it."""
+    tokens each (``_profiled``)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.blockpool import BlockPool
     from repro_torch.models import Model
@@ -622,29 +701,23 @@ def profile_decode_block(torch, dev, cfg, params):
     dec.admit_many([(Request(rid=i, tokens=np.zeros((L,), np.int32),
                              max_new_tokens=64), 0, payload, L)
                     for i in range(slots)])
-    dec.step_block()                   # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dec.step_block()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        dec.step_block()
-        torch.cuda.synchronize()
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        fail("the profiler recorded no device time")
-    busy = sum(ms for _, ms, _ in kernels)
-    top = sorted(kernels, key=lambda k: -k[1])[:5]
-    return {"slots": slots, "tokens_per_slot": L,
-            "steps": dec.block_size, "block_wall_ms": wall_ms,
-            "device_busy_ms_profiled": busy,
-            "device_busy_share": busy / wall_ms,
-            "top_kernels": [{"name": n[:80], "ms": ms, "launches": c}
-                            for n, ms, c in top]}
+    return {"slots": slots, "tokens_per_slot": L, "steps": dec.block_size,
+            **_profiled(torch, dec.step_block)}
+
+
+def profile_prefill(torch, dev, cfg, params):
+    """Where a prefill's time goes: one 4096-token prompt through
+    ``PrefillEngine`` (``_profiled``)."""
+    import numpy as np
+
+    from repro_torch.models import Model
+    from repro_torch.serving import PrefillEngine
+
+    L = 4096
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (1, L))
+    peng = PrefillEngine(Model(cfg), params, min_bucket=128)
+    return {"tokens": L, **_profiled(torch, lambda: peng.prefill(
+        toks.astype(np.int32), np.array([L], np.int32)))}
 
 
 def kimi_config():
@@ -668,6 +741,60 @@ def load_params(torch, dev, cfg, seed):
           f"({torch.cuda.memory_allocated() / 1e9:.1f} GB) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return params
+
+
+def zamba2_paths(torch, dev, paths, launches):
+    """zamba2-1.2b at full width and depth (38 layers: 32 Mamba2, the
+    shared attention + FFN block invoked 6 times), dense and then paged,
+    with a 4992-token (page-aligned) session: on the paged path its later
+    turn resumes from the device pages and the Mamba2 state snapshot and
+    prefills only its 600-token suffix.  Then the logit checks: bf16
+    recorded, the 2 % gate held in float32."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("zamba2-1.2b")
+    params = load_params(torch, dev, cfg, 2)
+    for tag, paged, need in (
+            ("zamba2_dense", False, ("flash_attention", "decode_attention",
+                                     "gla_chunked_fused",
+                                     "quantize_int8_fused")),
+            ("zamba2_paged", True, ("flash_attention",
+                                    "paged_decode_attention",
+                                    "paged_prefill_attention",
+                                    "gla_chunked_fused",
+                                    "quantize_int8_fused"))):
+        summary, counts, dep = main_path(torch, dev, cfg, params,
+                                         paged=paged, session_len=4992)
+        del dep
+        require_launched(counts, need, tag)
+        if paged:
+            pin = summary["device_pin_cached_len"]
+            if pin != 4992:
+                fail(f"the later turn on zamba2 pinned {pin} cached tokens, "
+                     "not its 4992-token page-aligned prefix")
+            if summary["pd_tokens_prefilled"][-1] != 600:
+                fail(f"the later turn on zamba2 prefilled "
+                     f"{summary['pd_tokens_prefilled'][-1]} tokens, not its "
+                     "600-token suffix")
+        paths[tag] = summary
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        print(f"{tag}: {summary['wall_s']:.2f} s wall, launches {counts}",
+              flush=True)
+    paths["zamba2_decode_profile"] = profile_decode_block(torch, dev, cfg,
+                                                          params)
+    paths["zamba2_prefill_profile"] = profile_prefill(torch, dev, cfg,
+                                                      params)
+    torch.cuda.empty_cache()
+    paths["zamba2_logits_bf16"] = compare_logits(torch, dev, cfg, params,
+                                                 gate=False)
+    paths["zamba2_paged_step_bf16"] = compare_paged_step(torch, dev, cfg,
+                                                         params, gate=False)
+    cfg, params = to_float32(cfg, params)
+    torch.cuda.empty_cache()
+    paths["zamba2_logits_f32"] = compare_logits(torch, dev, cfg, params)
+    paths["zamba2_paged_step_f32"] = compare_paged_step(torch, dev, cfg,
+                                                        params)
 
 
 def main():
@@ -766,6 +893,11 @@ def main():
     paths["mistral_logits_f32"] = compare_logits(torch, dev, cfg, params)
     paths["mistral_paged_step_f32"] = compare_paged_step(torch, dev, cfg,
                                                          params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    zamba2_paths(torch, dev, paths, launches)
 
     entries = [dict(name=name, route="cuda", source=k["source"],
                     replaces=k["replaces"], launches=launches.get(name, 0),

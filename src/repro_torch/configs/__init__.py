@@ -1,5 +1,6 @@
 """Architecture registry of the port: the architectures it can serve."""
-from repro_torch.configs import kimi_linear_1t, mistral_nemo_12b
+from repro_torch.configs import (kimi_linear_1t, mistral_nemo_12b,
+                                 zamba2_1_2b)
 from repro_torch.configs.base import (AttentionSpec, BlockSpec, FFNSpec,
                                       GroupSpec, LinearSpec, ModelConfig,
                                       reduce_for_smoke)
@@ -7,6 +8,7 @@ from repro_torch.configs.base import (AttentionSpec, BlockSpec, FFNSpec,
 ARCH_BUILDERS = {
     "kimi-linear-1t": kimi_linear_1t.build,
     "mistral-nemo-12b": mistral_nemo_12b.build,
+    "zamba2-1.2b": zamba2_1_2b.build,
 }
 
 

@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_attn.cu", "decode_attn.cu", "delta.cu", "quantize.cu",
-           "paged_decode_attn.cu", "paged_prefill_attn.cu")
+           "paged_decode_attn.cu", "paged_prefill_attn.cu", "gla.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +38,7 @@ _SIGNATURES = {
     "prfaas_flash_attention": [_P] * 4 + [_I] * 10 + [_F, _I, _P],
     "prfaas_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
     "prfaas_delta_fused": [_P] * 9 + [_I] * 6 + [_P],
+    "prfaas_gla_fused": [_P] * 8 + [_I] * 6 + [_P],
     "prfaas_quantize_int8": [_P, _P, _P, _P, _L, _I, _P],
     "prfaas_paged_decode_attention": [_P] * 8 + [_I] * 10 + [_F, _I, _I, _P],
     "prfaas_paged_prefill_attention": [_P] * 7 + [_I] * 10 + [_F, _I, _P],

@@ -18,14 +18,16 @@ from repro_torch.kernels import build as _build
 CHUNK = 64
 
 
-def mask_padded(lengths, S: int, log_a, k, beta):
+def mask_padded(lengths, S: int, log_a, k, beta=None):
     """Neutralize rows at or past each row's valid length (decay -> 1,
-    key and beta -> 0), exactly as the fused kernel does in-kernel."""
+    key and beta -> 0), exactly as the fused kernels do in-kernel.
+    Returns (log_a, k), and beta after them when given."""
     mask = torch.arange(S, device=k.device)[None, :] < lengths.to(k.device)[:, None]
     log_a = torch.where(mask[:, None, :], log_a, 0.0)
     k = torch.where(mask[:, None, :, None], k, torch.zeros((), dtype=k.dtype))
-    beta = torch.where(mask[:, None, :], beta, 0.0)
-    return log_a, k, beta
+    if beta is None:
+        return log_a, k
+    return log_a, k, torch.where(mask[:, None, :], beta, 0.0)
 
 
 def delta_chunked_ref(q, k, v, log_a, beta, initial_state):

@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import decode_attn as _decode
 from repro_torch.kernels import delta as _delta
 from repro_torch.kernels import flash_attn as _flash
+from repro_torch.kernels import gla as _gla
 from repro_torch.kernels import paged_decode_attn as _pdecode
 from repro_torch.kernels import paged_prefill_attn as _pprefill
 from repro_torch.kernels import quantize as _quant
@@ -60,6 +61,32 @@ def delta(q, k, v, log_a, beta, initial_state=None, *, lengths=None,
     return _delta.delta_chunked_fused(
         q.contiguous(), k.contiguous(), v.contiguous(),
         log_a.float().contiguous(), beta.float().contiguous(),
+        lengths.to(device=q.device, dtype=torch.int32).contiguous(),
+        initial_state.float().contiguous())
+
+
+def gla(q, k, v, log_a, initial_state=None, *, lengths=None,
+        use_kernel=True):
+    """Gated linear attention (scalar per-head decay) over right-padded
+    rows, in chunks of ``gla.CHUNK`` on both paths.  Returns (o,
+    final_state).
+
+    ``lengths`` (B,): valid rows per batch row (all S when None).  Rows at
+    or past it are neutralized (decay -> 1, k -> 0): in-kernel on CUDA, by
+    :func:`gla.mask_padded` before the plain chunked form."""
+    B, H, S, dk = q.shape
+    dv = v.shape[-1]
+    if initial_state is None:
+        initial_state = torch.zeros((B, H, dk, dv), dtype=torch.float32,
+                                    device=q.device)
+    if lengths is None:
+        lengths = torch.full((B,), S, dtype=torch.int32, device=q.device)
+    if _plain(use_kernel, q):
+        log_a, k = _gla.mask_padded(lengths, S, log_a, k)
+        return _gla.gla_chunked_ref(q, k, v, log_a, initial_state)
+    return _gla.gla_chunked_fused(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        log_a.float().contiguous(),
         lengths.to(device=q.device, dtype=torch.int32).contiguous(),
         initial_state.float().contiguous())
 
@@ -114,6 +141,7 @@ def quantize_wire(x):
     return _quant.quantize_int8_fused(x.contiguous())
 
 
-# single-step recurrent update: plain PyTorch on every device, as in the
-# reference (which has no kernel for it)
+# single-step recurrent updates: plain PyTorch on every device, as in the
+# reference (which has no kernel for them)
 delta_step = _delta.delta_step_ref
+gla_step = _gla.gla_step_ref

@@ -1,7 +1,8 @@
-"""Bounded-state sequence mixers, KDA/GDN (the gated delta rule).
+"""Bounded-state sequence mixers: KDA/GDN (the gated delta rule) and
+Mamba2 (SSD as gated linear attention with a scalar per-head decay).
 
 Counterpart of ``src/repro/models/linear_attention.py`` for the kinds the
-port serves; the other linear mixers (GLA, Mamba2, mLSTM, sLSTM) raise
+port serves; the other linear mixers (GLA, mLSTM, sLSTM) raise
 ``NotImplementedError`` until their slice lands.
 """
 from __future__ import annotations
@@ -13,7 +14,7 @@ from repro_torch.configs.base import LinearSpec
 from repro_torch.kernels import ops
 from repro_torch.models.layers import causal_conv1d
 
-SUPPORTED = ("kda", "gdn")
+SUPPORTED = ("kda", "gdn", "mamba2")
 
 
 def _check(spec: LinearSpec):
@@ -75,11 +76,20 @@ def _qkv(p, x, spec: LinearSpec, conv_state=None, lengths=None):
 
 
 def _gates_full(p, x, spec: LinearSpec):
-    """Per-token per-head (log_a <= 0, beta), each (B, H, S) float32."""
+    """Per-token per-head (log_a <= 0, beta), each (B, H, S) float32;
+    beta is None for Mamba2, which has no write strength."""
     dt = _softplus(x @ p["a_proj"]["w"] + p["dt_bias"].to(x.dtype))
     log_a = -torch.exp(p["A_log"].float()) * dt.float()
+    if spec.kind == "mamba2":
+        return log_a.transpose(1, 2), None
     beta = torch.sigmoid((x @ p["b_proj"]["w"]).float())
     return log_a.transpose(1, 2), beta.transpose(1, 2)
+
+
+def _d_skip(p, o, v):
+    """Mamba2's skip term, o + D v in float32 (head axis 1)."""
+    shape = (1, -1) + (1,) * (v.dim() - 2)
+    return o + p["D_skip"].float().reshape(shape) * v.float()
 
 
 def linear_forward(p, x, spec: LinearSpec, *, initial_state=None,
@@ -93,10 +103,16 @@ def linear_forward(p, x, spec: LinearSpec, *, initial_state=None,
     _check(spec)
     q, k, v, new_conv = _qkv(p, x, spec, conv_state, lengths=lengths)
     log_a, beta = _gates_full(p, x, spec)
-    k = _l2norm(k)
-    q = _l2norm(q)
-    o, state = ops.delta(q, k, v, log_a, beta, initial_state,
-                         lengths=lengths, use_kernel=use_kernels)
+    if spec.kind == "mamba2":
+        k = k * (spec.key_dim ** -0.5)
+        o, state = ops.gla(q, k, v, log_a, initial_state, lengths=lengths,
+                           use_kernel=use_kernels)
+        o = _d_skip(p, o, v)
+    else:
+        k = _l2norm(k)
+        q = _l2norm(q)
+        o, state = ops.delta(q, k, v, log_a, beta, initial_state,
+                             lengths=lengths, use_kernel=use_kernels)
     o = _per_head_norm(o.to(x.dtype), p["g_norm"])
     g = F.silu(x @ p["g_proj"]["w"])
     y = (_unheads(o) * g) @ p["wo"]["w"]
@@ -113,10 +129,15 @@ def linear_decode(p, x, spec: LinearSpec, cache):
     q, k, v, new_conv = _qkv(p, x, spec, cache.get("conv"))
     log_a, beta = _gates_full(p, x, spec)
     q1, k1, v1 = q[:, :, 0], k[:, :, 0], v[:, :, 0]
-    k1 = _l2norm(k1)
-    q1 = _l2norm(q1)
-    o, state = ops.delta_step(q1, k1, v1, log_a[:, :, 0], beta[:, :, 0],
-                              cache["state"])
+    if spec.kind == "mamba2":
+        k1 = k1 * (spec.key_dim ** -0.5)
+        o, state = ops.gla_step(q1, k1, v1, log_a[:, :, 0], cache["state"])
+        o = _d_skip(p, o, v1)
+    else:
+        k1 = _l2norm(k1)
+        q1 = _l2norm(q1)
+        o, state = ops.delta_step(q1, k1, v1, log_a[:, :, 0],
+                                  beta[:, :, 0], cache["state"])
     o = _per_head_norm(o[:, :, None].to(x.dtype), p["g_norm"])[:, :, 0]
     g = F.silu(x[:, 0] @ p["g_proj"]["w"])
     y = ((o.reshape(B, -1) * g) @ p["wo"]["w"])[:, None]

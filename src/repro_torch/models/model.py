@@ -3,10 +3,12 @@ decode_step, plus the decode cache builders.
 
 Counterpart of ``src/repro/models/model.py``.  Parameters are the
 reference's tree as plain dicts of tensors (``repro_torch.params``), with
-each group's blocks stacked over its repeats as ``(R, ...)`` leaves; a
-Python loop over the repeats replaces ``lax.scan``.  Caches keep the
-reference's keys and shapes: ``{"groups": [{"b0": {"state", "conv"}, ...,
-"b3": {"ckv", "kpe"}}]}`` with stacked ``(R, B, S, ...)`` leaves.
+each group's blocks stacked over its repeats as ``(R, ...)`` leaves under
+``"stacked"``, and a shared (parameter-tied) block's one unstacked tree
+under ``"shared"``; a Python loop over the repeats replaces ``lax.scan``.
+Caches keep the reference's keys and shapes: ``{"groups": [{"b0":
+{"state", "conv"}, ..., "b3": {"ckv", "kpe"}}]}`` with stacked ``(R, B, S,
+...)`` leaves; every block invocation, shared or not, has its own cache.
 
 Full-attention blocks cache ``{"k", "v"}`` (R, B, S, Hkv, D).  With
 ``tables`` (paged KV, ``repro_torch.models.paged``) the attention leaves
@@ -15,9 +17,9 @@ block tables.
 
 The serving path's MoE is always the exact dropless form (the reference's
 inference default).  Architectures whose blocks the port does not serve
-yet (encoders, image prefixes, cross-attention, shared blocks, sliding
-windows, mixers other than KDA/GDN, GQA and MLA) raise
-``NotImplementedError`` at construction.
+yet (encoders, image prefixes, cross-attention, sliding windows, mixers
+other than KDA/GDN, Mamba2, GQA and MLA) raise ``NotImplementedError`` at
+construction.
 """
 from __future__ import annotations
 
@@ -40,9 +42,9 @@ def _check_supported(cfg: ModelConfig):
                                   "ported yet")
     for g in cfg.groups:
         for b in g.blocks:
-            if b.shared or b.cross is not None:
-                raise NotImplementedError("shared or cross-attention blocks "
-                                          "are not ported yet")
+            if b.cross is not None:
+                raise NotImplementedError("cross-attention blocks are not "
+                                          "ported yet")
             m = b.mixer
             if isinstance(m, AttentionSpec):
                 attn_mod._check(m)
@@ -53,6 +55,14 @@ def _check_supported(cfg: ModelConfig):
 def _rep(tree, r: int):
     """Repeat ``r`` of a stacked (R, ...) tree (views, no copy)."""
     return tree_map(lambda x: x[r], tree)
+
+
+def _block_params(g, gp, r: int):
+    """{"b<i>": params} of repeat ``r`` of group ``g``: a view of the
+    stacked leaves, or the shared block's one tree."""
+    pr = _rep(gp["stacked"], r)
+    return {f"b{bi}": gp["shared"][f"b{bi}"] if b.shared else pr[f"b{bi}"]
+            for bi, b in enumerate(g.blocks)}
 
 
 def _stack(trees):
@@ -143,7 +153,7 @@ class Model:
         for gi, (g, gp) in enumerate(zip(self.cfg.groups, params["groups"])):
             reps = []
             for r in range(g.repeats):
-                pr = _rep(gp["stacked"], r)
+                pr = _block_params(g, gp, r)
                 cr = None if caches is None else _rep(caches[gi], r)
                 rc = {}
                 for bi, b in enumerate(g.blocks):
@@ -215,7 +225,7 @@ class Model:
         for gi, (g, gp) in enumerate(zip(self.cfg.groups, params["groups"])):
             gc = caches["groups"][gi]
             for r in range(g.repeats):
-                pr = _rep(gp["stacked"], r)
+                pr = _block_params(g, gp, r)
                 for bi, b in enumerate(g.blocks):
                     key = f"b{bi}"
                     cur = _rep(gc[key], r)

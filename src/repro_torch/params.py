@@ -3,7 +3,8 @@
 :func:`from_numpy_tree` turns the reference's parameter tree, given as
 numpy arrays (what ``jax.tree.map(np.asarray, repro.models.Model(cfg)
 .init(key))`` returns), into the port's tree of tensors with the same keys
-and the same stacked ``(R, ...)`` group layout.  bfloat16 leaves cross
+and the same group layout: ``"stacked"`` ``(R, ...)`` leaves, and one
+unstacked tree per shared block under ``"shared"``.  bfloat16 leaves cross
 bit-exactly through their uint16 bit patterns.
 
 :func:`init_params` draws a tree of the same structure on any device from a
@@ -105,7 +106,7 @@ def _block(dr, lead, d, spec: BlockSpec):
         mx["kv_norm"] = dr.const(lead + (R,), 1.0)
         mx["wkv_b"] = _linear(dr, lead, R, m.kv_heads * 2 * D)
         mx["wo"] = _linear(dr, lead, H * D, d)
-    else:                                     # KDA / GDN
+    else:                                     # KDA / GDN / Mamba2
         H, dk, dv = m.heads, m.key_dim, m.value_dim
         mx = {"wq": _linear(dr, lead, d, H * dk),
               "wk": _linear(dr, lead, d, H * dk),
@@ -115,8 +116,11 @@ def _block(dr, lead, d, spec: BlockSpec):
               "g_norm": dr.const(lead + (H * dv,), 1.0),
               "a_proj": _linear(dr, lead, d, H),
               "A_log": dr.const(lead + (H,), 0.0),
-              "dt_bias": dr.const(lead + (H,), 0.0),
-              "b_proj": _linear(dr, lead, d, H)}
+              "dt_bias": dr.const(lead + (H,), 0.0)}
+        if m.kind == "mamba2":
+            mx["D_skip"] = dr.const(lead + (H,), 0.0)
+        else:
+            mx["b_proj"] = _linear(dr, lead, d, H)
         if m.conv_kernel:
             C = H * (2 * dk + dv)
             mx["conv_w"] = dr.normal(lead + (m.conv_kernel, C),
@@ -137,8 +141,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     p = {"embed": dr.normal((V, d), 0.02),
          "final_norm": dr.const((d,), 1.0),
          "groups": [{"stacked": {f"b{bi}": _block(dr, (g.repeats,), d, b)
-                                 for bi, b in enumerate(g.blocks)},
-                     "shared": {}}
+                                 for bi, b in enumerate(g.blocks)
+                                 if not b.shared},
+                     "shared": {f"b{bi}": _block(dr, (), d, b)
+                                for bi, b in enumerate(g.blocks)
+                                if b.shared}}
                     for g in cfg.groups]}
     if not cfg.tie_embeddings:
         p["unembed"] = dr.normal((d, V), 0.02)

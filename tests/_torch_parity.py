@@ -5,6 +5,7 @@ leaf-by-leaf tree comparison."""
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -39,10 +40,38 @@ def configs(q_rank: int = 0, arch: str = ARCH):
     return jcfg, tcfg
 
 
+def nonzero_mamba2_gates(tree, seed: int = 0):
+    """The numpy param tree with every Mamba2 mixer's ``A_log``,
+    ``dt_bias`` and ``D_skip`` drawn from a seed (the reference inits them
+    to zeros, which leaves the skip term out and the decay softplus-only).
+    Other mixers are left as they are."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "D_skip" in node:
+                node = dict(node)
+                for name, lo, hi in (("A_log", 0.0, 1.5),
+                                     ("dt_bias", -2.0, 0.0),
+                                     ("D_skip", 0.5, 1.5)):
+                    x = node[name]
+                    node[name] = rng.uniform(lo, hi, x.shape).astype(x.dtype)
+                return node
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(tree)
+
+
 def shared_params(jcfg, seed: int = 0):
-    """(reference params, the same params as port tensors on the CPU)."""
+    """(reference params, the same params as port tensors on the CPU).
+    Mamba2 gate parameters are made nonzero (:func:`nonzero_mamba2_gates`)
+    in the numpy tree both frameworks receive."""
     jparams = JaxModel(jcfg).init(jax.random.PRNGKey(seed))
-    return jparams, from_numpy_tree(jax.tree.map(np.asarray, jparams), "cpu")
+    tree = nonzero_mamba2_gates(jax.tree.map(np.asarray, jparams), seed)
+    return jax.tree.map(jnp.asarray, tree), from_numpy_tree(tree, "cpu")
 
 
 def to_torch(tree):

@@ -5,7 +5,8 @@ hits the prefix cache: per request the route, the cached prefix, the output
 tokens and the raw and quantized wire bytes equal the reference's.
 Timings are not compared.  Thresholds are frozen and the link is fat, so
 the routing telemetry does not depend on measured wall times.  Plus the
-port's launcher end to end on the CPU.
+port's launcher end to end on the CPU.  ``tests/test_torch_hybrid_serving.py``
+runs the same checks on smoke ``zamba2-1.2b``.
 """
 import functools
 
@@ -31,8 +32,8 @@ DEP = dict(threshold=64, link_gbps=100.0, decode_slots=4,
 
 
 @functools.lru_cache(maxsize=None)
-def _setup():
-    jcfg, tcfg = configs()
+def _setup(arch="kimi-linear-1t"):
+    jcfg, tcfg = configs(arch=arch)
     jparams, tparams = shared_params(jcfg)
     return jcfg, tcfg, jparams, tparams
 
@@ -63,11 +64,11 @@ def _serve(dep, req_cls, batches):
 
 
 @pytest.mark.parametrize("regions", [1, 2])
-def test_deployment_matches_reference(regions):
+def test_deployment_matches_reference(regions, arch="kimi-linear-1t"):
     """One PD region, or two joined by a PD mesh link (requests alternate
     homes, so the session extension may find its prefix in another
     region)."""
-    jcfg, tcfg, jparams, tparams = _setup()
+    jcfg, tcfg, jparams, tparams = _setup(arch)
     batches = _batches(tcfg)
     kw = dict(DEP, pd_clusters=regions,
               pd_mesh_gbps=100.0 if regions > 1 else 0.0)
@@ -91,9 +92,9 @@ def test_deployment_matches_reference(regions):
                                                     rel=1e-9)
 
 
-def test_launcher_serves_every_request_on_cpu():
+def test_launcher_serves_every_request_on_cpu(arch="kimi-linear-1t"):
     args = serve.build_parser().parse_args(
-        ["--arch", "kimi-linear-1t", "--smoke", "--device", "cpu",
+        ["--arch", arch, "--smoke", "--device", "cpu",
          "--requests", "6", "--wire-compression", "--freeze-thresholds",
          "--max-new-tokens", "3", "--max-prefill-bucket", "128"])
     report = serve.run_serve(args)

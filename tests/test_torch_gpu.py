@@ -10,9 +10,9 @@ collects the same tests).  Run on a machine with an H100:
 Tolerances (abs, rel): float32 inputs 2e-5, 2e-5 (the plain and kernel
 sums run in other orders); bfloat16 outputs 2e-3, 2e-2 (a bf16 ulp is 2^-8
 of the value, and the outputs of unit inputs are as small as ~0.02); the
-delta rule 1e-4, 1e-3 (as ``tests/test_kernels_delta.py``) for its float32
-state at either input dtype and its float32 output; quantize
-byte-identical.
+delta rule and gated linear attention 1e-4, 1e-3 (as
+``tests/test_kernels_delta.py``) for their float32 state at either input
+dtype and their float32 output; quantize byte-identical.
 """
 import numpy as np
 import pytest
@@ -24,6 +24,7 @@ from repro_torch.kernels.decode_attn import (decode_attention,
 from repro_torch.kernels.delta import (delta_chunked_fused, delta_chunked_ref,
                                        mask_padded)
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+from repro_torch.kernels.gla import gla_chunked_fused, gla_chunked_ref
 from repro_torch.kernels.paged_decode_attn import (
     paged_decode_attention, paged_decode_attention_ref)
 from repro_torch.kernels.paged_prefill_attn import (
@@ -54,6 +55,8 @@ def _randn(gen, shape, dtype, dev, scale=1.0):
     (1, 4, 1, 64, 192, 32, 32, 128, 0),
     (2, 2, 2, 200, 200, 64, 64, 0, 48),
     (1, 4, 4, 77, 300, 192, 128, 223, 0),
+    (1, 32, 32, 300, 300, 64, 64, 0, 0),      # zamba2's shared MHA block
+    (1, 32, 32, 128, 384, 64, 64, 256, 0),    # its chunk after 256 tokens
 ])
 def test_flash_matches_plain(cuda, dtype, B, Hq, Hkv, Sq, Sk, Dk, Dv,
                              q_offset, window):
@@ -75,6 +78,7 @@ def test_flash_matches_plain(cuda, dtype, B, Hq, Hkv, Sq, Sk, Dk, Dv,
     (3, 4, 1, 100, 48, 32, 0),
     (2, 64, 1, 1000, 536, 472, 0),
     (2, 8, 2, 300, 64, 64, 50),
+    (3, 32, 32, 300, 64, 64, 0),              # zamba2: one head per group
 ])
 def test_decode_matches_plain(cuda, dtype, B, Hq, Hkv, S, Dk, Dv, window):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -120,6 +124,56 @@ def test_delta_matches_plain(cuda, dtype, B, H, S, dk, dv, lens):
                                o2.float()[valid[:, None].expand(-1, H, -1)],
                                atol=otol[0], rtol=otol[1])
     torch.testing.assert_close(st, st2, atol=1e-4, rtol=1e-3)
+
+
+def _gla_inputs(g, B, H, S, dk, dv, lengths, dtype, dev):
+    """Mamba2-scaled q, k (k by dk^-0.5), decays from mild to strong, a
+    nonzero initial state, and NaN in k and log_a at every row past each
+    length (the kernel must select them away)."""
+    q = _randn(g, (B, H, S, dk), torch.float32, dev)
+    k = _randn(g, (B, H, S, dk), torch.float32, dev, dk ** -0.5)
+    v = _randn(g, (B, H, S, dv), torch.float32, dev)
+    u = torch.rand((B, H, S), generator=g, device=dev)
+    la = -2.0 * u ** 3
+    s0 = _randn(g, (B, H, dk, dv), torch.float32, dev, 0.5)
+    past = torch.arange(S, device=dev)[None, :] >= lengths[:, None]
+    k[past[:, None].expand(-1, H, -1)] = float("nan")
+    la[past[:, None].expand(-1, H, -1)] = float("nan")
+    return q.to(dtype), k.to(dtype), v.to(dtype), la, s0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,dk,dv,lens", [
+    (2, 4, 100, 64, 128, (100, 37)),       # S not a multiple of 64
+    (2, 3, 100, 64, 48, (61, 100)),        # dv 48: a partial column slice
+    (2, 2, 4096, 64, 128, (4096, 2500)),   # the zamba2 head at length
+    (1, 2, 70, 16, 16, (0,)),              # no valid row: s0 passes through
+])
+def test_gla_matches_plain(cuda, dtype, B, H, S, dk, dv, lens):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q, k, v, la, s0 = _gla_inputs(g, B, H, S, dk, dv, lengths, dtype, cuda)
+    o, st = gla_chunked_fused(q, k, v, la, lengths, s0)
+    torch.cuda.synchronize()
+    la_m, k_m = mask_padded(lengths, S, la, k)
+    o2, st2 = gla_chunked_ref(q, k_m, v, la_m, s0)
+    valid = (torch.arange(S, device=cuda)[None, :] < lengths[:, None])
+    valid = valid[:, None].expand(-1, H, -1)
+    otol = (1e-4, 1e-3) if dtype == torch.float32 else TOL[dtype]
+    assert torch.isfinite(st).all()
+    torch.testing.assert_close(o.float()[valid], o2.float()[valid],
+                               atol=otol[0], rtol=otol[1])
+    torch.testing.assert_close(st, st2, atol=1e-4, rtol=1e-3)
+
+
+def test_gla_op_routes_cuda_tensors_to_the_kernel(cuda):
+    build.reset_launches()
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = _randn(g, (1, 2, 16, 16), torch.float32, cuda)
+    ops.gla(q, q, q, torch.zeros((1, 2, 16), device=cuda))
+    ops.gla(q, q, q, torch.zeros((1, 2, 16), device=cuda),
+            lengths=torch.tensor([9], device=cuda))
+    assert dict(build.LAUNCHES) == {"gla_chunked_fused": 2}
 
 
 @pytest.mark.parametrize("shape", [(7,), (4096, 472), (1, 1, 1000, 64),
@@ -182,6 +236,7 @@ def _paged_pools(g, dev, dtype, B, Hkv, T, N, Dk, Dv, lengths):
     (2, 16, 1, 16, 20, 536, 472, 0, (320, 101)),     # absorbed-MLA shape
     (2, 4, 4, 8, 7, 32, 32, 20, (56, 23)),           # sliding window
     (4, 32, 8, 16, 40, 128, 128, 0, (640, 17, 300, 16)),   # GQA shape
+    (3, 32, 32, 16, 20, 64, 64, 0, (320, 1, 77)),          # zamba2 MHA
 ])
 def test_paged_decode_matches_plain(cuda, dtype, B, Hq, Hkv, T, N, Dk, Dv,
                                     window, lengths):
@@ -204,6 +259,7 @@ def test_paged_decode_matches_plain(cuda, dtype, B, Hq, Hkv, T, N, Dk, Dv,
     (2, 4, 2, 40, 16, 3, 40, 32),
     (1, 4, 1, 64, 16, 5, 150, 64),       # chunk past the suffix's start
     (1, 32, 8, 128, 16, 8, 256, 128),    # GQA shape
+    (1, 32, 32, 128, 16, 8, 200, 64),    # zamba2 MHA, head dim 64
 ])
 def test_paged_prefill_matches_plain(cuda, dtype, B, Hq, Hkv, C, T, N, Ssuf,
                                      D):

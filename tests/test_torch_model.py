@@ -1,7 +1,9 @@
 """The port's model against the reference's on smoke ``kimi-linear-1t``
 (float32, the reference's params carried over): padded prefill logits and
 caches, chunked == full prefill, decode after prefill, and a variant with
-the full-width model's low-rank MLA query path.
+the full-width model's low-rank MLA query path.  The fixture's ``zamba2``
+case runs the same checks on smoke ``zamba2-1.2b`` (Mamba2 + a shared
+attention block; ``tests/test_torch_hybrid.py`` runs its chunks).
 
 Tolerances: logits 1e-4 abs / 1e-4 rel; caches 3e-4 abs / 1e-3 rel (two
 stacked repeats of KDA + MLA + MoE blocks, float32 sums in other orders).
@@ -28,15 +30,17 @@ CACHE_TOL = dict(atol=3e-4, rtol=1e-3)
 
 
 @functools.lru_cache(maxsize=None)
-def _setup(q_rank):
-    jcfg, tcfg = configs(q_rank=q_rank)
+def _setup(q_rank, arch="kimi-linear-1t"):
+    jcfg, tcfg = configs(q_rank=q_rank, arch=arch)
     jparams, tparams = shared_params(jcfg)
     return jcfg, tcfg, jparams, tparams
 
 
-@pytest.fixture(params=[0, 24], ids=["q_full", "q_rank"])
+@pytest.fixture(params=[(0, "kimi-linear-1t"), (24, "kimi-linear-1t"),
+                        (0, "zamba2-1.2b")],
+                ids=["q_full", "q_rank", "zamba2"])
 def setup(request):
-    return _setup(request.param)
+    return _setup(*request.param)
 
 
 def _batch(cfg, lens, S, seed=0):
@@ -57,11 +61,11 @@ def test_padded_prefill_matches_reference(setup):
     assert_trees_close(jc, tc, **CACHE_TOL)
 
 
-def test_chunked_prefill_matches_full():
+def test_chunked_prefill_matches_full(arch="kimi-linear-1t"):
     """Three 16-token chunks (the q_offset attention path and the linear
     state carry) give the full prefill's logits and caches, and the
     reference's chunk caches."""
-    jcfg, tcfg, jparams, tparams = _setup(0)
+    jcfg, tcfg, jparams, tparams = _setup(0, arch)
     toks, lens = _batch(tcfg, [48, 29], 48, seed=1)
     model = Model(tcfg)
     full_logits, full = model.prefill(tparams, {
@@ -89,10 +93,10 @@ def test_chunked_prefill_matches_full():
     np.testing.assert_allclose(logits.numpy(), full_logits.numpy(),
                                **LOGIT_TOL)
     assert_trees_close(jc, tc, **CACHE_TOL)
-    # the full prefill's latent rows beyond each length are padding: compare
-    # the state leaves exactly as a whole and the latent rows up to length
+    # the full prefill's K/V and latent rows beyond each length are padding:
+    # compare the state leaves as a whole and the sequence rows up to length
     for (path, a), (_, b) in zip(flatten(full), flatten(tc)):
-        if path.endswith(("ckv", "kpe")):
+        if path.endswith(("ckv", "kpe", "/k", "/v")):
             for row, n in enumerate(lens):
                 np.testing.assert_allclose(b[:, row, :n], a[:, row, :n],
                                            **CACHE_TOL)

@@ -1,6 +1,7 @@
 """The port's paged KV against the reference's, on the CPU: the plain paged
-kernels, paged decode steps on smoke ``mistral-nemo-12b`` (GQA) and smoke
-``kimi-linear-1t`` (MLA), paged admission and the page pool.
+kernels, paged decode steps on smoke ``mistral-nemo-12b`` (GQA), smoke
+``kimi-linear-1t`` (MLA) and smoke ``zamba2-1.2b`` (Mamba2 + a shared MHA
+block), paged admission and the page pool.
 
 Inputs are made with numpy from a seed and given to both frameworks; the
 reference's params are carried over with ``from_numpy_tree``.  The
@@ -46,7 +47,7 @@ torch.set_num_threads(1)
 KERNEL_TOL = dict(atol=2e-5, rtol=2e-5)
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 CACHE_TOL = dict(atol=3e-4, rtol=1e-3)
-GQA, MLA = "mistral-nemo-12b", "kimi-linear-1t"
+GQA, MLA, HYBRID = "mistral-nemo-12b", "kimi-linear-1t", "zamba2-1.2b"
 PAGE = 16
 
 
@@ -164,7 +165,7 @@ def test_cpu_tensors_take_the_plain_paged_versions():
         paged_prefill_attention(qc, pool, pool, tables, ks, ks)
 
 
-@pytest.mark.parametrize("arch", [GQA, MLA])
+@pytest.mark.parametrize("arch", [GQA, MLA, HYBRID])
 def test_paged_decode_steps_match_reference(arch):
     """``decode_step`` over random page pools through random tables (the
     last slot inactive on the sink page, one slot past its table): logits,
@@ -226,7 +227,7 @@ def _prefilled(arch, L, seed):
     return toks, int(first[0]), jeng.trim_request_cache(caches, 0, L)
 
 
-@pytest.mark.parametrize("arch", [GQA, MLA])
+@pytest.mark.parametrize("arch", [GQA, MLA, HYBRID])
 def test_wire_admitted_pool_byte_identical(arch):
     """An int8 wire payload of the reference's, admitted by the port's
     paged engine (dequantized inside the page write), leaves pools

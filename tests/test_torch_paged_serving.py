@@ -14,7 +14,9 @@ the reference's params carried over (float32 smoke models):
 
 Mirrors ``tests/test_paged_kv.py`` of the reference, on smoke
 ``mistral-nemo-12b`` (GQA); ``tests/test_torch_paged_mla.py`` runs the
-first two checks on smoke ``kimi-linear-1t`` (MLA + KDA).  Tokens are
+first two checks on smoke ``kimi-linear-1t`` (MLA + KDA), and
+``tests/test_torch_hybrid.py`` the first two and the deployment on smoke
+``zamba2-1.2b`` (Mamba2 + a shared MHA block).  Tokens are
 compared exactly; timings are not compared.
 """
 import functools
@@ -115,7 +117,7 @@ def _resume(side, arch, prefix, tokens_b):
     request B resumes from them.  Returns (B's tokens, cached length,
     tokens prefilled for B, pool)."""
     flags = dict(has_full_attn=True,
-                 has_linear=arch == MLA)        # kimi carries linear state
+                 has_linear=arch != GQA)        # kimi, zamba2: linear state
     pool = side[5](SLOTS * CAPACITY // PAGE, PAGE, 1)
     cache = side[6](pool, 0, 1, **flags)
     peng, dec, sched = _scheduler(side, paged=True, pool=pool, cache=cache)
@@ -212,13 +214,13 @@ def _deploy(dep, req_cls, batches):
 
 
 @pytest.mark.parametrize("wire", [False, True], ids=["raw", "wire"])
-def test_paged_deployment_matches_reference(wire):
+def test_paged_deployment_matches_reference(wire, arch=GQA):
     """A first turn, then its extension: ``_route`` pins the registered
     prefix and the home region prefills only the suffix.  Per request the
     route, cached tokens, pin, wire bytes and tokens equal the reference's;
     the region's pool stats too.  ``wire``: a low threshold offloads the
     first turn, which admits as int8 pages dequantized in the write."""
-    jcfg, tcfg, jparams, tparams = _setup(GQA)
+    jcfg, tcfg, jparams, tparams = _setup(arch)
     prefix, suffix, other = _prompts([64, 30, 20], seed=11)
     batches = [[(0, prefix, 4), (1, other, 5)],
                [(2, np.concatenate([prefix, suffix]), 6)]]
