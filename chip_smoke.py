@@ -9,9 +9,14 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
   1. print the card's name and power limit (``nvidia-smi``);
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, one process
      per source, all at once);
-  3. hold each of the seven kernels against its plain PyTorch version on
+  3. hold each of the nine kernels against its plain PyTorch version on
      the card at the main paths' full-width shapes, and time kernel, plain
      version and (for the attention kernels) PyTorch's SDPA as a yardstick;
+     then each differentiable op (attention, gla and delta, with and
+     without lengths) at the training paths' shapes and types: its kernel
+     forward against the plain version's outputs, and its gradients
+     against autograd through the plain version (the same plain backward
+     on both sides, so a check of the wiring);
   4. drive the main paths, each with every kernel launch counted from 0,
      through ``CrossDCDeployment`` serving prompts of 100-12000 tokens
      through both routes with int8 wire compression and chunked prefill,
@@ -40,7 +45,19 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      concatenation against a decode step; and profile one paged decode
      block of mistral-nemo-12b and of zamba2-1.2b, and one 4096-token
      prefill of zamba2-1.2b (``torch.profiler``: device busy time and the
-     largest kernels).
+     largest kernels);
+  6. the training path on ``zamba2-1.2b`` at full width and depth: four
+     AdamW steps of 2 x 2048 tokens in two microbatches with remat
+     through ``make_train_step`` (the Mamba2 mixers on the unmasked GLA
+     kernel, row 6), one more profiled; then the loss and gradients of one
+     2048-token row through the kernels against the plain versions, bf16
+     recorded and float32 gated, and the bf16 gradients through the
+     kernels no further from the float32 ones than 1.5x the plain bf16
+     gradients' distance;
+  7. the reference's KDA:MLA 3:1 training recipe at its 100m scale
+     (``repro_torch.examples.train_100m``): 30 steps of 8 x 1024 tokens
+     through ``TrainLoop`` with checkpoints in a temporary directory (the
+     KDA mixers on the unmasked delta kernel, row 5); its loss must fall.
 
 The last lines are the main paths' summary, the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": ...}``.
@@ -64,6 +81,17 @@ F32_FLOP_S = 67e12             # float32 outside the tensor cores
 # tolerances of the kernel-vs-plain checks
 TOL_BF16 = (2e-3, 2e-2)        # bf16 outputs (abs, rel)
 TOL_STATE = (1e-4, 1e-3)       # the delta rule's float32 state (abs, rel)
+# gradients through a kernel's forward vs autograd through its plain
+# version (the same plain backward, float32): fraction of the largest
+TOL_GRAD = 1e-5
+# a float32 train step's loss and global gradient norm, kernels vs plain
+# versions (relative)
+TOL_TRAIN_LOSS = 1e-4
+TOL_TRAIN_GRAD = 1e-3
+# the same step in bf16: the relative L2 distance of the gradients through
+# the kernels from the float32 plain gradients of the same weights, as a
+# multiple of that of the bf16 plain gradients
+TOL_BF16_GRAD_RATIO = 1.5
 # first-token logits through kernels vs plain versions, bf16 model: the
 # largest difference may be this fraction of the largest |logit|
 TOL_LOGITS = 2e-2
@@ -255,6 +283,8 @@ def check_kernels(torch, dev):
 
     out.update(check_gla_kernel(torch, dev, g, randn, close, atol_needed))
     out.update(check_paged_kernels(torch, dev, g, randn, close, atol_needed))
+    out.update(check_unmasked_kernels(torch, dev, g, randn, close,
+                                      atol_needed))
     return out
 
 
@@ -299,6 +329,198 @@ def check_gla_kernel(torch, dev, g, randn, close, atol_needed):
         bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
         shape="q,k (2,32,4096,64) v (2,32,4096,128) bf16, log_a f32, state "
               "(2,32,64,128) f32 nonzero, lengths 4096, 2500")}
+
+
+def check_unmasked_kernels(torch, dev, g, randn, close, atol_needed):
+    """Phase 3, rows 5 and 6: the unmasked scans of training, each against
+    its plain version with a nonzero initial state.  gla_chunked at
+    zamba2's Mamba2 head (H = 32, dk = 64, dv = 128) and a 2048-token
+    training row, delta_chunked at row 3's kimi KDA shape, so the masked
+    and unmasked delta kernels compare directly."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.delta import delta_chunked, delta_chunked_ref
+    from repro_torch.kernels.gla import gla_chunked, gla_chunked_ref
+
+    out = {}
+    B, H, S, dk, dv = 2, 32, 2048, 64, 128
+    q = randn(B, H, S, dk)
+    k = randn(B, H, S, dk, scale=dk ** -0.5)
+    v = randn(B, H, S, dv)
+    la = -2.0 * torch.rand((B, H, S), generator=g, device=dev) ** 3
+    s0 = randn(B, H, dk, dv, dtype=torch.float32, scale=0.5)
+    o, st = gla_chunked(q, k, v, la, s0)
+    torch.cuda.synchronize()
+    o2, st2 = gla_chunked_ref(q, k, v, la, s0)
+    e_o = close("gla_chunked (o)", o, o2, *TOL_BF16)
+    close("gla_chunked (state)", st, st2, *TOL_STATE)
+    chunks = B * H * (-(-S // 64))
+    per_chunk = 64 * 65 // 2 * 2 * (dk + dv) + 2 * (2 * 64 * dk * dv)
+    bnd = _bound(B * H * S * ((2 * dk + 2 * dv) * 2 + 4) + _nbytes(s0, st),
+                 chunks * per_chunk, BF16_FLOP_S)
+    out["gla_chunked"] = dict(
+        source="src/repro_torch/csrc/gla.cu",
+        replaces="src/repro/kernels/gla.py:126",
+        max_abs_err=e_o, atol_needed=atol_needed(o, o2),
+        ms=_ms(lambda: gla_chunked(q, k, v, la, s0), 10),
+        plain_ms=_ms(lambda: gla_chunked_ref(q, k, v, la, s0), 3),
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+        shape="q,k (2,32,2048,64) v (2,32,2048,128) bf16, log_a f32, state "
+              "(2,32,64,128) f32 nonzero, no lengths")
+    del q, k, v, la, s0, o, o2
+
+    B, H, S, d = 2, 56, 4096, 128
+    qn = F.normalize(randn(B, H, S, d, dtype=torch.float32), dim=-1).to(
+        torch.bfloat16)
+    kn = F.normalize(randn(B, H, S, d, dtype=torch.float32), dim=-1).to(
+        torch.bfloat16)
+    vn = randn(B, H, S, d)
+    la = -0.1 * randn(B, H, S, dtype=torch.float32).abs()
+    beta = torch.rand((B, H, S), generator=g, device=dev) * 0.9 + 0.1
+    s0 = randn(B, H, d, d, dtype=torch.float32, scale=0.1)
+    o, st = delta_chunked(qn, kn, vn, la, beta, s0)
+    torch.cuda.synchronize()
+    o2, st2 = delta_chunked_ref(qn, kn, vn, la, beta, s0)
+    e_o = close("delta_chunked (o)", o, o2, *TOL_BF16)
+    close("delta_chunked (state)", st, st2, *TOL_STATE)
+    chunks = B * H * (S // 64)
+    per_chunk = 4 * 64 * 64 * d + 6 * 64 * d * d + 2 * 64 * 64 * d
+    bnd = _bound(B * H * S * (4 * d * 2 + 2 * 4) + _nbytes(s0, st),
+                 chunks * per_chunk, BF16_FLOP_S)
+    out["delta_chunked"] = dict(
+        source="src/repro_torch/csrc/delta.cu",
+        replaces="src/repro/kernels/delta.py:155",
+        max_abs_err=e_o, atol_needed=atol_needed(o, o2),
+        ms=_ms(lambda: delta_chunked(qn, kn, vn, la, beta, s0), 5),
+        plain_ms=_ms(lambda: delta_chunked_ref(qn, kn, vn, la, beta, s0), 2),
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+        shape="q,k,v (2,56,4096,128) bf16, state (2,56,128,128) f32, no "
+              "lengths")
+    return out
+
+
+def check_grads(torch, dev):
+    """Phase 3b: each differentiable op on CUDA at the shapes and types the
+    training paths give it, against its plain version.  ``zamba2_train``
+    runs flash in MHA form (1, 32, 2048, 64) and gla_chunked at (1, 32,
+    2048, dk 64 / dv 128) in bf16, and ``zamba2_train_check`` both again in
+    float32; ``hybrid_train`` runs flash in MLA form (4, 8, 1024, Dk 96 /
+    Dv 64) and delta_chunked at (4, 8, 1024, 64) in float32 (a microbatch
+    of four rows).  The masked instances get the same shapes with ragged
+    lengths.
+
+    * Forward: the kernel's outputs against the plain version's, within
+      TOL_STATE in float32 and TOL_BF16 (the state TOL_STATE) in bf16,
+      only the rows below the lengths where there are any.  This is what
+      holds the kernels at these shapes.
+    * Gradients, float32: the ``autograd.Function``'s against autograd
+      through the plain version for a random upstream gradient, within
+      TOL_GRAD of the largest |gradient|.  Both sides recompute the plain
+      version from the same inputs in the backward, so this checks only
+      the wiring: the inputs saved, the upstream passed on, each gradient
+      returned to its input.
+
+    Returns {case: {"fwd_max_abs_err": {dtype: x}, "fwd_atol_needed":
+    {dtype: x}, "grad_rel_diff": x}}."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def unit(*shape):
+        x = randn(*shape)
+        return x / x.norm(dim=-1, keepdim=True)
+
+    gla_args = (randn(1, 32, 2048, 64), randn(1, 32, 2048, 64, scale=0.125),
+                randn(1, 32, 2048, 128),
+                -2.0 * torch.rand((1, 32, 2048), generator=g,
+                                  device=dev) ** 3,
+                randn(1, 32, 64, 128, scale=0.5))
+    delta_args = (unit(4, 8, 1024, 64), unit(4, 8, 1024, 64),
+                  randn(4, 8, 1024, 64),
+                  -0.1 * randn(4, 8, 1024).abs(),
+                  torch.rand((4, 8, 1024), generator=g, device=dev) * 0.9
+                  + 0.1, randn(4, 8, 64, 64, scale=0.1))
+
+    def lens(*n):
+        return torch.tensor(n, dtype=torch.int32, device=dev)
+
+    # case: (op, float32 inputs, lengths, forward dtypes)
+    cases = {
+        "attention_mha": ("attention", (randn(1, 32, 2048, 64),
+                                        randn(1, 32, 2048, 64),
+                                        randn(1, 32, 2048, 64)), None,
+                          ("f32", "bf16")),
+        "attention_mla": ("attention", (randn(4, 8, 1024, 96),
+                                        randn(4, 8, 1024, 96),
+                                        randn(4, 8, 1024, 64)), None,
+                          ("f32",)),
+        "gla": ("gla", gla_args, None, ("f32", "bf16")),
+        "gla_lengths": ("gla", tuple(torch.cat([a, a]) for a in gla_args),
+                        lens(2048, 1400), ("f32",)),
+        "delta": ("delta", delta_args, None, ("f32",)),
+        "delta_lengths": ("delta", delta_args, lens(1024, 700, 1024, 333),
+                          ("f32",)),
+    }
+    out = {}
+    for name, (op, args, lengths, dtypes) in cases.items():
+        kw = {} if lengths is None else {"lengths": lengths}
+        entry = out[name] = {"fwd_max_abs_err": {}, "fwd_atol_needed": {}}
+        for dtype in dtypes:
+            # q, k, v take the model's dtype; decays, beta and the state
+            # stay float32
+            xs = tuple(a.to(torch.bfloat16) if dtype == "bf16" and i < 3
+                       else a for i, a in enumerate(args))
+            with torch.no_grad():
+                got, want = (getattr(ops, op)(*xs, use_kernel=u, **kw)
+                             for u in (True, False))
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs, needs = [], []
+            for i, (a, b) in enumerate(zip(got, want)):
+                if i == 0 and lengths is not None:
+                    valid = (torch.arange(a.shape[2], device=dev)[None, :]
+                             < lengths[:, None])[:, None, :, None]
+                    a, b = (x.masked_select(valid) for x in (a, b))
+                atol, rtol = (TOL_BF16 if dtype == "bf16" and i == 0
+                              else TOL_STATE)
+                a, b = a.float(), b.float()
+                err = float((a - b).abs().max())
+                need = max(0.0, float(((a - b).abs() - rtol * b.abs()).max()))
+                if not (torch.isfinite(a).all() and need <= atol):
+                    fail(f"{name} ({dtype}) output {i} through its kernel "
+                         f"disagrees with its plain version: max abs error "
+                         f"{err:.3e} (atol {atol}, rtol {rtol}; atol needed "
+                         f"{need:.3e})")
+                errs.append(err)
+                needs.append(need)
+            entry["fwd_max_abs_err"][dtype] = max(errs)
+            entry["fwd_atol_needed"][dtype] = max(needs)
+        ups = []
+
+        def grads(use_kernel):
+            xs = [a.detach().clone().requires_grad_() for a in args]
+            res = getattr(ops, op)(*xs, use_kernel=use_kernel, **kw)
+            res = res if isinstance(res, tuple) else (res,)
+            if not ups:
+                ups.extend(randn(*r.shape) for r in res)
+            return torch.autograd.grad(res, xs, ups)
+
+        got, want = grads(True), grads(False)
+        worst = 0.0
+        for a, b in zip(got, want):
+            scale = float(b.abs().max())
+            diff = float((a - b).abs().max())
+            if not (torch.isfinite(a).all() and diff <= TOL_GRAD * scale):
+                fail(f"gradient of {name} through its kernel differs from "
+                     f"autograd through the plain version: {diff:.3e} "
+                     f"against {scale:.3e}")
+            worst = max(worst, diff / max(scale, 1e-30))
+        entry["grad_rel_diff"] = worst
+        del got, want
+    return out
 
 
 def _paged_tables(torch, dev, g, lens, T, N, P):
@@ -797,6 +1019,219 @@ def zamba2_paths(torch, dev, paths, launches):
                                                         params)
 
 
+def _grad_gap(torch, got, want):
+    """Two gradient trees: (relative gap of their global norms,
+    ||got - want|| / ||want||, the leaf with the largest share of
+    ||got - want||^2 and that share)."""
+    from repro_torch.models.tree import tree_flatten_with_path
+    dev = tree_flatten_with_path(want)[0][1].device
+    na = nb = torch.zeros((), device=dev)
+    per = {}
+    for (path, a), (_, b) in zip(tree_flatten_with_path(got),
+                                 tree_flatten_with_path(want)):
+        a, b = a.float(), b.float()
+        na, nb = na + (a * a).sum(), nb + (b * b).sum()
+        per[path] = float(((a - b) ** 2).sum())
+    na, nb = float(na) ** 0.5, float(nb) ** 0.5
+    nd2 = sum(per.values())
+    worst = max(per, key=per.get)
+    return (abs(na - nb) / nb, nd2 ** 0.5 / nb, worst,
+            per[worst] / max(nd2, 1e-30))
+
+
+def zamba2_train(torch, dev):
+    """Phase 6: the training path on zamba2-1.2b at full width and depth
+    (38 layers, 1.34 B params, random bf16 weights from a seed): batch 2 x
+    2048 tokens from ``SyntheticLM``, two microbatches, remat, AdamW (lr
+    3e-4, warmup 2), four steps through ``make_train_step`` with every
+    kernel launch counted from 0, then one more under ``torch.profiler``.
+    Then the kernels-vs-plain check on one 2048-token row: loss and
+    gradients in float32 (gated: the loss within TOL_TRAIN_LOSS, the
+    global gradient norm within TOL_TRAIN_GRAD) and in bf16 (recorded),
+    and the two bf16 gradients' distance from the float32 plain one
+    (gated: the kernels' within TOL_BF16_GRAD_RATIO of the plain
+    versions')."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import Model
+    from repro_torch.params import requires_grad
+    from repro_torch.training import (AdamWConfig, DataConfig, SyntheticLM,
+                                      TrainConfig, init_opt_state,
+                                      loss_and_grads, make_train_step)
+
+    cfg = get_config("zamba2-1.2b")
+    params = requires_grad(load_params(torch, dev, cfg, 3))
+    tc = TrainConfig(microbatches=2, adamw=AdamWConfig(
+        lr=3e-4, warmup_steps=2, total_steps=4))
+    model = Model(cfg, use_kernels=True, remat=True)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=2048,
+                                  global_batch=2))
+    state = init_opt_state(params, tc)
+    step_fn = make_train_step(model, tc)
+    probe = params["groups"][0]["stacked"]["b0"]["mixer"]["wq"]["w"]
+    before = probe[0, :4, :4].detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    hist = []
+    for step in range(4):
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, data.batch(step))
+        torch.cuda.synchronize()
+        hist.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "lr": float(m["lr"]),
+                     "time_s": time.perf_counter() - t0})
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    require_launched(launches, ("gla_chunked", "flash_attention"),
+                     "zamba2_train")
+    for h in hist:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            fail(f"zamba2 training: non-finite loss or grad norm {hist}")
+    if abs(hist[0]["loss"] - math.log(cfg.vocab_size)) > 1.0:
+        fail(f"zamba2 training: step-0 loss {hist[0]['loss']:.3f} is not "
+             f"near ln {cfg.vocab_size} = {math.log(cfg.vocab_size):.3f}")
+    if torch.equal(before, probe[0, :4, :4].detach()):
+        fail("zamba2 training: the params did not move")
+    profile = _profiled_once(torch, lambda: step_fn(params, state,
+                                                    data.batch(4)))
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "params": cfg.param_count(), "batch": [2, 2048],
+           "microbatches": 2, "steps": hist,
+           "mean_step_s_after_first": sum(h["time_s"] for h in hist[1:]) / 3,
+           "peak_memory_gb": peak, "launches": launches,
+           "step_profile": profile}
+    del state, step_fn
+    gc_cuda(torch)
+
+    # kernels vs plain versions on one row: float32 gated; bf16 recorded,
+    # and each bf16 gradient held against the float32 plain one
+    batch = {"tokens": data.batch(10)["tokens"][:1]}
+    losses, grads = {}, {}
+    for dtype in ("bf16", "f32"):
+        if dtype == "f32":
+            with torch.no_grad():
+                requires_grad(params, False)
+                cfg, params = to_float32(cfg, params)
+            requires_grad(params)
+            gc_cuda(torch)
+        for path, use in (("kernels", True), ("plain", False)):
+            loss, _, grads[dtype, path] = loss_and_grads(
+                Model(cfg, use_kernels=use, remat=True), params, batch)
+            losses[dtype, path] = float(loss)
+            if not math.isfinite(losses[dtype, path]):
+                fail(f"zamba2 train check ({dtype}, {path}): non-finite "
+                     f"loss")
+    del params
+    gc_cuda(torch)
+    check = {}
+    for dtype in ("bf16", "f32"):
+        lk, lp = losses[dtype, "kernels"], losses[dtype, "plain"]
+        norm_gap, diff, worst, share = _grad_gap(
+            torch, grads[dtype, "kernels"], grads[dtype, "plain"])
+        check[dtype] = {"loss_kernels": lk, "loss_plain": lp,
+                        "loss_rel_diff": abs(lk - lp) / abs(lp),
+                        "grad_norm_rel_diff": norm_gap,
+                        "grad_rel_l2_diff": diff,
+                        "largest_diff_leaf": worst,
+                        "largest_diff_leaf_share": share}
+    # the bf16 gradients' distance from the float32 plain gradient of the
+    # same weights: through the kernels, and through the plain versions
+    # (the same model with its own summation order) as the witness of what
+    # bf16 rounding alone does
+    wit = {path: _grad_gap(torch, grads["bf16", path], grads["f32", "plain"])
+           for path in ("kernels", "plain")}
+    del grads
+    gc_cuda(torch)
+    check["bf16_vs_f32_plain"] = {
+        f"{path}_grad_rel_l2_diff": w[1] for path, w in wit.items()}
+    check["bf16_vs_f32_plain"].update(
+        {f"{path}_grad_norm_rel_diff": w[0] for path, w in wit.items()},
+        ratio=wit["kernels"][1] / wit["plain"][1])
+    f32 = check["f32"]
+    if not (f32["loss_rel_diff"] <= TOL_TRAIN_LOSS
+            and f32["grad_norm_rel_diff"] <= TOL_TRAIN_GRAD):
+        fail(f"zamba2 train check in float32: kernels vs plain {check}")
+    if not check["bf16_vs_f32_plain"]["ratio"] <= TOL_BF16_GRAD_RATIO:
+        fail(f"zamba2 train check in bf16: the gradients through the "
+             f"kernels are further from the float32 ones than the plain "
+             f"versions' by more than {TOL_BF16_GRAD_RATIO}x: {check}")
+    return out, check
+
+
+def hybrid_train(torch, dev):
+    """Phase 7: the reference's KDA:MLA 3:1 recipe at its 100m scale
+    (53.7 M params, 12 layers, float32) through the port's copy of
+    ``examples/train_100m.py``: ``TrainLoop`` with checkpoints in a
+    temporary directory, 30 steps of batch 8 x 1024 tokens in two
+    microbatches, every kernel launch counted from 0."""
+    import math
+    import tempfile
+
+    from repro_torch.examples.train_100m import run
+    from repro_torch.kernels import build
+
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt:
+        cfg, hist, stragglers = run("100m", steps=30, batch=8, seq=1024,
+                                    device=dev, ckpt_dir=ckpt)
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    require_launched(launches, ("delta_chunked", "flash_attention"),
+                     "hybrid_train")
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"hybrid training: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"hybrid training: the loss did not fall ({losses[0]:.4f} -> "
+             f"{losses[-1]:.4f})")
+    return {"arch": cfg.name, "layers": cfg.n_layers,
+            "params": cfg.param_count(), "batch": [8, 1024],
+            "microbatches": 2, "steps": len(hist), "losses": losses,
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "mean_step_s_after_first": sum(h["time_s"] for h in hist[1:])
+            / (len(hist) - 1),
+            "straggler_flags": len(stragglers), "wall_s": wall,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}
+
+
+def gc_cuda(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _profiled_once(torch, fn):
+    """One ``fn()`` under ``torch.profiler``: its host wall, the device's
+    busy time, and the ten kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        fail("the profiler recorded no device time")
+    busy = sum(ms for _, ms, _ in kernels)
+    top = sorted(kernels, key=lambda k: -k[1])[:10]
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms,
+            "top_kernels": [{"name": n[:80], "ms": ms, "launches": c}
+                            for n, ms, c in top]}
+
+
 def main():
     import gc
 
@@ -829,6 +1264,9 @@ def main():
               f"needed at rtol {TOL_BF16[1]}: {k['atol_needed']:.3e}), "
               f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound "
               f"{k['bound_ms']:.4f} ms by {k['bound_by']})", flush=True)
+    grad_checks = check_grads(torch, dev)
+    print(f"training-shape op checks (forward error; gradient difference "
+          f"/ largest gradient): {grad_checks}", flush=True)
     torch.cuda.empty_cache()
 
     # kimi-linear-1t slice: the dense path, then the paged one
@@ -898,6 +1336,27 @@ def main():
     torch.cuda.empty_cache()
 
     zamba2_paths(torch, dev, paths, launches)
+    gc_cuda(torch)
+
+    # the training path: zamba2-1.2b (row 6), then the KDA:MLA recipe
+    # (row 5)
+    summary, check = zamba2_train(torch, dev)
+    paths["zamba2_train"], paths["zamba2_train_check"] = summary, check
+    for name, n in summary["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"zamba2_train: {[round(h['loss'], 4) for h in summary['steps']]}"
+          f", {summary['mean_step_s_after_first']:.2f} s a step, peak "
+          f"{summary['peak_memory_gb']:.1f} GB, launches "
+          f"{summary['launches']}; check {check}", flush=True)
+    summary = hybrid_train(torch, dev)
+    paths["hybrid_train"] = summary
+    for name, n in summary["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"hybrid_train: loss {summary['losses'][0]:.4f} -> "
+          f"{summary['losses'][-1]:.4f}, "
+          f"{summary['mean_step_s_after_first']:.3f} s a step, launches "
+          f"{summary['launches']}", flush=True)
+    paths["gradient_checks"] = grad_checks
 
     entries = [dict(name=name, route="cuda", source=k["source"],
                     replaces=k["replaces"], launches=launches.get(name, 0),
@@ -907,6 +1366,9 @@ def main():
                     atol_needed=k["atol_needed"], shape=k["shape"],
                     **({"gqa": k["gqa"]} if "gqa" in k else {}))
                for name, k in kernels.items()]
+    missing = [e["name"] for e in entries if e["launches"] <= 0]
+    if missing:
+        fail(f"kernels never launched on a main path: {missing}")
     print(json.dumps({"main_path": paths}))
     print(card)
     print(json.dumps({"kernels": entries}))

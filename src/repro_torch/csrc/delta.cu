@@ -1,16 +1,22 @@
-// Chunked gated delta rule with the padded-row mask fused in.
+// Chunked gated delta rule, in two instances of one template:
 //
-// Replaces the TPU kernel src/repro/kernels/delta.py::delta_chunked_fused
-// (pallas_call at delta.py:218): the KDA prefill, H = 56 heads with
-// dk = dv = 128 at full width, bf16 q/k/v, float32 decays, write strengths
-// and state.
+//   * kMasked = true replaces the TPU kernel
+//     src/repro/kernels/delta.py::delta_chunked_fused (pallas_call at
+//     delta.py:218): the KDA prefill over right-padded rows, H = 56 heads
+//     with dk = dv = 128 at full width, bf16 q/k/v, float32 decays, write
+//     strengths and state;
+//   * kMasked = false replaces src/repro/kernels/delta.py::delta_chunked
+//     (pallas_call at delta.py:155): the same rule with every row valid,
+//     the forward of training and unpadded evaluation of KDA / GDN mixers.
+//     It reads no lengths.
 //
 //     S_t = a_t (I - beta_t k_t k_t^T) S_{t-1} + beta_t k_t v_t^T
 //     o_t = q_t S_t
 //
-// Rows at or past lengths[b] are neutralized in-kernel (decay -> 1,
-// k -> 0, beta -> 0), so the returned state is the state after each row's
-// real tokens, whatever bucket padding follows.
+// Rows at or past lengths[b] (masked instance) and the tail chunk's rows
+// past S (both) are neutralized in-kernel (decay -> 1, k -> 0, beta -> 0),
+// so the returned state is the state after each row's real tokens,
+// whatever bucket padding follows.
 //
 // What bounds it on the H100: the recurrence.  Per 64-token chunk the work
 // is a handful of 64x128 and 64x64 products (a few MFLOP) over 64 rows of
@@ -38,9 +44,9 @@ constexpr int DVB = 32;    // state columns per block
 constexpr int NT = 256;    // threads per block (8 warps)
 constexpr int CS = C + 1;  // row stride of the C x C matrices
 
-template <typename T>
+template <typename T, bool kMasked>
 __global__ void __launch_bounds__(NT)
-delta_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
+delta_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ log_a,
                    const float* __restrict__ beta,
                    const int* __restrict__ lengths,
@@ -63,7 +69,7 @@ delta_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int c0 = blockIdx.x * DVB, h = blockIdx.y, b = blockIdx.z;
   const int ncol = min(DVB, dv - c0);
   const size_t bh = (size_t)b * H + h;
-  const int len = min(lengths[b], S);
+  const int len = kMasked ? min(lengths[b], S) : S;
   const T* qp = q + bh * S * dk;
   const T* kp = k + bh * S * dk;
   const T* vp = v + bh * S * dv;
@@ -189,14 +195,14 @@ delta_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (lane < ncol) sT[(bh * dk + d) * dv + c0 + lane] = Ss[d * DVB + lane];
 }
 
-template <typename T>
+template <typename T, bool kMasked>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* log_a, const float* beta, const int* lengths,
                    const float* s0, void* o, float* sT, int B, int H, int S,
                    int dk, int dv, cudaStream_t stream) {
   const size_t smem = (size_t)(2 * C * (dk + 1) + dk * DVB + C * DVB +
                                2 * C * CS + 3 * C) * sizeof(float);
-  auto kernel = delta_fused_kernel<T>;
+  auto kernel = delta_kernel<T, kMasked>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(cdiv(dv, DVB), H, B), NT, smem, stream>>>(
@@ -204,6 +210,26 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), log_a, beta, lengths, s0, static_cast<T*>(o),
       sT, H, S, dk, dv);
   return cudaGetLastError();
+}
+
+template <bool kMasked>
+int dispatch(const void* q, const void* k, const void* v, const void* log_a,
+             const void* beta, const void* lengths, const void* s0, void* o,
+             void* sT, int B, int H, int S, int dk, int dv, int dtype,
+             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* la = static_cast<const float*>(log_a);
+  const float* bt = static_cast<const float*>(beta);
+  const int* lens = static_cast<const int*>(lengths);
+  const float* st0 = static_cast<const float*>(s0);
+  float* stT = static_cast<float*>(sT);
+  if (dtype == kBF16)
+    return launch<__nv_bfloat16, kMasked>(q, k, v, la, bt, lens, st0, o, stT,
+                                          B, H, S, dk, dv, s);
+  if (dtype == kF32)
+    return launch<float, kMasked>(q, k, v, la, bt, lens, st0, o, stT, B, H,
+                                  S, dk, dv, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -216,17 +242,16 @@ PRFAAS_API int prfaas_delta_fused(const void* q, const void* k, const void* v,
                                   const void* lengths, const void* s0,
                                   void* o, void* sT, int B, int H, int S,
                                   int dk, int dv, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* la = static_cast<const float*>(log_a);
-  const float* bt = static_cast<const float*>(beta);
-  const int* lens = static_cast<const int*>(lengths);
-  const float* st0 = static_cast<const float*>(s0);
-  float* stT = static_cast<float*>(sT);
-  if (dtype == kBF16)
-    return launch<__nv_bfloat16>(q, k, v, la, bt, lens, st0, o, stT, B, H, S,
-                                 dk, dv, s);
-  if (dtype == kF32)
-    return launch<float>(q, k, v, la, bt, lens, st0, o, stT, B, H, S, dk, dv,
-                         s);
-  return cudaErrorInvalidValue;
+  return dispatch<true>(q, k, v, log_a, beta, lengths, s0, o, sT, B, H, S,
+                        dk, dv, dtype, stream);
+}
+
+// The same without lengths: every row of every batch row is valid.
+PRFAAS_API int prfaas_delta_chunked(const void* q, const void* k,
+                                    const void* v, const void* log_a,
+                                    const void* beta, const void* s0, void* o,
+                                    void* sT, int B, int H, int S, int dk,
+                                    int dv, int dtype, void* stream) {
+  return dispatch<false>(q, k, v, log_a, beta, nullptr, s0, o, sT, B, H, S,
+                         dk, dv, dtype, stream);
 }

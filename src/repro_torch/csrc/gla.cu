@@ -1,10 +1,14 @@
-// Chunked gated linear attention (scalar per-head decay) with the
-// padded-row mask fused in.
+// Chunked gated linear attention (scalar per-head decay), in two
+// instances of one template:
 //
-// Replaces the TPU kernel src/repro/kernels/gla.py::gla_chunked_fused
-// (pallas_call at gla.py:185): every serving prefill of a Mamba2 mixer
-// (zamba2-1.2b: H = 32 heads, dk = 64, dv = 128, bf16 q/k/v, float32
-// decays and state), and later of GLA and mLSTM.
+//   * kMasked = true replaces the TPU kernel
+//     src/repro/kernels/gla.py::gla_chunked_fused (pallas_call at
+//     gla.py:185): every serving prefill of a Mamba2 mixer (zamba2-1.2b:
+//     H = 32 heads, dk = 64, dv = 128, bf16 q/k/v, float32 decays and
+//     state) over right-padded rows, and later of GLA and mLSTM;
+//   * kMasked = false replaces src/repro/kernels/gla.py::gla_chunked
+//     (pallas_call at gla.py:126): the same scan with every row valid, the
+//     forward of training and unpadded evaluation.  It reads no lengths.
 //
 //     S_t = exp(log_a_t) S_{t-1} + k_t v_t^T ,   o_t = q_t S_t
 //
@@ -14,9 +18,10 @@
 //     o      = A v + (q . exp(csum)) S
 //     S     <- exp(csum_C) S + (k . exp(csum_C - csum))^T v
 // so every exponent is <= 0 and no 1/gamma appears.  Rows at or past
-// lengths[b] are neutralized by selection (k -> 0, v -> 0, log_a -> 0):
-// garbage there, NaN included, never reaches the state.  Output rows there
-// are unspecified, as in the TPU kernel.
+// lengths[b] (masked instance) and the tail chunk's rows past S (both) are
+// neutralized by selection (k -> 0, v -> 0, log_a -> 0): garbage there, NaN
+// included, never reaches the state.  Output rows past a length are
+// unspecified, as in the TPU kernel.
 //
 // What bounds it on the H100: the recurrence.  Per chunk the work is three
 // small products (64 x 64 x dk, 64 x 64 x dv, dk x 64 x dv) over 64 rows of
@@ -41,9 +46,9 @@ constexpr int DVB = 32;    // state columns per block
 constexpr int NT = 256;    // threads per block (8 warps)
 constexpr int CS = C + 1;  // row stride of the C x C matrix
 
-template <typename T>
+template <typename T, bool kMasked>
 __global__ void __launch_bounds__(NT)
-gla_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
+gla_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ log_a,
                  const int* __restrict__ lengths,
                  const float* __restrict__ s0, T* __restrict__ o,
@@ -65,7 +70,7 @@ gla_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int c0 = blockIdx.x * DVB, h = blockIdx.y, b = blockIdx.z;
   const int ncol = min(DVB, dv - c0);
   const size_t bh = (size_t)b * H + h;
-  const int len = min(lengths[b], S);
+  const int len = kMasked ? min(lengths[b], S) : S;
   const T* qp = q + bh * S * dk;
   const T* kp = k + bh * S * dk;
   const T* vp = v + bh * S * dv;
@@ -156,14 +161,14 @@ gla_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (lane < ncol) sT[(bh * dk + d) * dv + c0 + lane] = Ss[d * DVB + lane];
 }
 
-template <typename T>
+template <typename T, bool kMasked>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* log_a, const int* lengths, const float* s0,
                    void* o, float* sT, int B, int H, int S, int dk, int dv,
                    cudaStream_t stream) {
   const size_t smem = (size_t)(2 * C * (dk + 1) + dk * DVB + C * DVB +
                                C * CS + 4 * C) * sizeof(float);
-  auto kernel = gla_fused_kernel<T>;
+  auto kernel = gla_kernel<T, kMasked>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(cdiv(dv, DVB), H, B), NT, smem, stream>>>(
@@ -171,6 +176,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), log_a, lengths, s0, static_cast<T*>(o), sT,
       H, S, dk, dv);
   return cudaGetLastError();
+}
+
+template <bool kMasked>
+int dispatch(const void* q, const void* k, const void* v, const void* log_a,
+             const void* lengths, const void* s0, void* o, void* sT, int B,
+             int H, int S, int dk, int dv, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* la = static_cast<const float*>(log_a);
+  const int* lens = static_cast<const int*>(lengths);
+  const float* st0 = static_cast<const float*>(s0);
+  float* stT = static_cast<float*>(sT);
+  if (dtype == kBF16)
+    return launch<__nv_bfloat16, kMasked>(q, k, v, la, lens, st0, o, stT, B,
+                                          H, S, dk, dv, s);
+  if (dtype == kF32)
+    return launch<float, kMasked>(q, k, v, la, lens, st0, o, stT, B, H, S,
+                                  dk, dv, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -183,15 +206,15 @@ PRFAAS_API int prfaas_gla_fused(const void* q, const void* k, const void* v,
                                 const void* s0, void* o, void* sT, int B,
                                 int H, int S, int dk, int dv, int dtype,
                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* la = static_cast<const float*>(log_a);
-  const int* lens = static_cast<const int*>(lengths);
-  const float* st0 = static_cast<const float*>(s0);
-  float* stT = static_cast<float*>(sT);
-  if (dtype == kBF16)
-    return launch<__nv_bfloat16>(q, k, v, la, lens, st0, o, stT, B, H, S, dk,
-                                 dv, s);
-  if (dtype == kF32)
-    return launch<float>(q, k, v, la, lens, st0, o, stT, B, H, S, dk, dv, s);
-  return cudaErrorInvalidValue;
+  return dispatch<true>(q, k, v, log_a, lengths, s0, o, sT, B, H, S, dk, dv,
+                        dtype, stream);
+}
+
+// The same without lengths: every row of every batch row is valid.
+PRFAAS_API int prfaas_gla_chunked(const void* q, const void* k, const void* v,
+                                  const void* log_a, const void* s0, void* o,
+                                  void* sT, int B, int H, int S, int dk,
+                                  int dv, int dtype, void* stream) {
+  return dispatch<false>(q, k, v, log_a, nullptr, s0, o, sT, B, H, S, dk, dv,
+                         dtype, stream);
 }

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "prfaas_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
     "prfaas_delta_fused": [_P] * 9 + [_I] * 6 + [_P],
     "prfaas_gla_fused": [_P] * 8 + [_I] * 6 + [_P],
+    "prfaas_delta_chunked": [_P] * 8 + [_I] * 6 + [_P],
+    "prfaas_gla_chunked": [_P] * 7 + [_I] * 6 + [_P],
     "prfaas_quantize_int8": [_P, _P, _P, _P, _L, _I, _P],
     "prfaas_paged_decode_attention": [_P] * 8 + [_I] * 10 + [_F, _I, _I, _P],
     "prfaas_paged_prefill_attention": [_P] * 7 + [_I] * 10 + [_F, _I, _P],

@@ -1,9 +1,13 @@
 """Chunked gated delta rule: the plain PyTorch version and the CUDA
 kernel's wrapper.
 
-The kernel (``csrc/delta.cu``) replaces the TPU kernel
-``src/repro/kernels/delta.py::delta_chunked_fused``.  Its plain version is
-:func:`mask_padded` followed by :func:`delta_chunked_ref`, which follow
+The kernel (``csrc/delta.cu``) has two instances:
+:func:`delta_chunked_fused` replaces the TPU kernel
+``src/repro/kernels/delta.py::delta_chunked_fused`` (rows past ``lengths``
+masked: serving prefill) and :func:`delta_chunked` replaces
+``delta_chunked`` there (no mask: training and unpadded evaluation).  Their
+plain versions are :func:`mask_padded` followed by
+:func:`delta_chunked_ref`, and :func:`delta_chunked_ref` alone, which follow
 ``src/repro/kernels/ops.py::_mask_padded`` and
 ``src/repro/models/chunked_attention.py::delta_chunked_jnp``.
 """
@@ -84,28 +88,25 @@ def delta_chunked_ref(q, k, v, log_a, beta, initial_state):
     return o.to(dtype), state
 
 
-def delta_chunked_fused(q, k, v, log_a, beta, lengths, initial_state):
-    """The CUDA kernel: the masked chunked delta rule in one launch.
-    q, k, v contiguous CUDA tensors of one dtype (float32 or bfloat16);
-    log_a, beta, initial_state float32; lengths int32.  Output rows at
-    positions >= lengths[b] are computed from the neutralized rows, as the
-    TPU kernel computes them."""
-    name = "delta_chunked_fused"
-    _build.require_cuda(name, q, k, v, log_a, beta, lengths, initial_state)
+def _launch(name, q, k, v, log_a, beta, lengths, initial_state):
+    """Validate, allocate and launch the masked (``lengths`` given) or the
+    unmasked instance of ``csrc/delta.cu``."""
+    extra = () if lengths is None else (lengths,)
+    _build.require_cuda(name, q, k, v, log_a, beta, initial_state, *extra)
     B, H, S, dk = q.shape
     dv = v.shape[-1]
     if (tuple(k.shape) != (B, H, S, dk) or tuple(v.shape[:3]) != (B, H, S)
             or tuple(log_a.shape) != (B, H, S)
             or tuple(beta.shape) != (B, H, S)
-            or tuple(lengths.shape) != (B,)
-            or tuple(initial_state.shape) != (B, H, dk, dv)):
+            or tuple(initial_state.shape) != (B, H, dk, dv)
+            or (lengths is not None and tuple(lengths.shape) != (B,))):
         raise ValueError(f"{name}: inconsistent shapes")
     if not (k.dtype == v.dtype == q.dtype):
         raise TypeError(f"{name}: q, k, v dtypes differ")
     for t in (log_a, beta, initial_state):
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: log_a, beta and state must be float32")
-    if lengths.dtype != torch.int32:
+    if lengths is not None and lengths.dtype != torch.int32:
         raise TypeError(f"{name}: lengths must be int32")
     if dk > 256:
         raise ValueError(f"{name}: key dim {dk} exceeds 256")
@@ -114,14 +115,36 @@ def delta_chunked_fused(q, k, v, log_a, beta, lengths, initial_state):
     if state.numel() == 0:
         return o, state
     lib = _build.library()
-    err = lib.prfaas_delta_fused(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
-        beta.data_ptr(), lengths.data_ptr(), initial_state.data_ptr(),
-        o.data_ptr(), state.data_ptr(), B, H, S, dk, dv,
-        _build.dtype_code(q), _build.stream_ptr(q))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
+            beta.data_ptr())
+    tail = (initial_state.data_ptr(), o.data_ptr(), state.data_ptr(), B, H,
+            S, dk, dv, _build.dtype_code(q), _build.stream_ptr(q))
+    if lengths is None:
+        err = lib.prfaas_delta_chunked(*ptrs, *tail)
+    else:
+        err = lib.prfaas_delta_fused(*ptrs, lengths.data_ptr(), *tail)
     _build.check(name, err)
     _build.LAUNCHES[name] += 1
     return o, state
+
+
+def delta_chunked_fused(q, k, v, log_a, beta, lengths, initial_state):
+    """The CUDA kernel, masked instance: the chunked delta rule in one
+    launch.  q, k, v contiguous CUDA tensors of one dtype (float32 or
+    bfloat16); log_a, beta, initial_state float32; lengths int32.  Output
+    rows at positions >= lengths[b] are computed from the neutralized rows,
+    as the TPU kernel computes them."""
+    return _launch("delta_chunked_fused", q, k, v, log_a, beta, lengths,
+                   initial_state)
+
+
+def delta_chunked(q, k, v, log_a, beta, initial_state):
+    """The CUDA kernel, unmasked instance (the TPU kernel
+    ``src/repro/kernels/delta.py::delta_chunked``): every row valid, as in
+    training.  Same tensors as :func:`delta_chunked_fused` without
+    ``lengths``; its plain version is :func:`delta_chunked_ref`."""
+    return _launch("delta_chunked", q, k, v, log_a, beta, None,
+                   initial_state)
 
 
 def delta_step_ref(q, k, v, log_a, beta, state):

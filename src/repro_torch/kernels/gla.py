@@ -4,9 +4,12 @@ PyTorch version and the CUDA kernel's wrapper.
     S_t = exp(log_a_t) S_{t-1} + k_t v_t^T ,   o_t = q_t S_t
 
 It serves Mamba2 (SSD), and later GLA and mLSTM.  The kernel
-(``csrc/gla.cu``) replaces the TPU kernel
-``src/repro/kernels/gla.py::gla_chunked_fused``.  Its plain version is
-:func:`mask_padded` followed by :func:`gla_chunked_ref`, which follow
+(``csrc/gla.cu``) has two instances: :func:`gla_chunked_fused` replaces the
+TPU kernel ``src/repro/kernels/gla.py::gla_chunked_fused`` (rows past
+``lengths`` masked: serving prefill) and :func:`gla_chunked` replaces
+``gla_chunked`` there (no mask: training and unpadded evaluation).  Their
+plain versions are :func:`mask_padded` followed by :func:`gla_chunked_ref`,
+and :func:`gla_chunked_ref` alone, which follow
 ``src/repro/kernels/ops.py::_mask_padded`` and
 ``src/repro/models/chunked_attention.py::gla_chunked_jnp``.
 """
@@ -19,7 +22,7 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels.delta import mask_padded
 
 __all__ = ["CHUNK", "mask_padded", "gla_chunked_ref", "gla_chunked_fused",
-           "gla_step_ref"]
+           "gla_chunked", "gla_step_ref"]
 
 # chunk length of both paths; csrc/gla.cu compiles it in (its C)
 CHUNK = 64
@@ -65,28 +68,24 @@ def gla_chunked_ref(q, k, v, log_a, initial_state):
     return o.to(dtype), state
 
 
-def gla_chunked_fused(q, k, v, log_a, lengths, initial_state):
-    """The CUDA kernel: the masked chunked scan in one launch.  q, k, v
-    contiguous CUDA tensors of one dtype (float32 or bfloat16); log_a and
-    initial_state float32; lengths int32.  Rows at or past lengths[b] are
-    neutralized by selection (k, v -> 0, log_a -> 0), so the final state is
-    the state after each row's real tokens; output rows there are
-    unspecified, as in the TPU kernel."""
-    name = "gla_chunked_fused"
-    _build.require_cuda(name, q, k, v, log_a, lengths, initial_state)
+def _launch(name, q, k, v, log_a, lengths, initial_state):
+    """Validate, allocate and launch the masked (``lengths`` given) or the
+    unmasked instance of ``csrc/gla.cu``."""
+    extra = () if lengths is None else (lengths,)
+    _build.require_cuda(name, q, k, v, log_a, initial_state, *extra)
     B, H, S, dk = q.shape
     dv = v.shape[-1]
     if (tuple(k.shape) != (B, H, S, dk) or tuple(v.shape[:3]) != (B, H, S)
             or tuple(log_a.shape) != (B, H, S)
-            or tuple(lengths.shape) != (B,)
-            or tuple(initial_state.shape) != (B, H, dk, dv)):
+            or tuple(initial_state.shape) != (B, H, dk, dv)
+            or (lengths is not None and tuple(lengths.shape) != (B,))):
         raise ValueError(f"{name}: inconsistent shapes")
     if not (k.dtype == v.dtype == q.dtype):
         raise TypeError(f"{name}: q, k, v dtypes differ")
     for t in (log_a, initial_state):
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: log_a and state must be float32")
-    if lengths.dtype != torch.int32:
+    if lengths is not None and lengths.dtype != torch.int32:
         raise TypeError(f"{name}: lengths must be int32")
     if dk > 256:
         raise ValueError(f"{name}: key dim {dk} exceeds 256")
@@ -95,14 +94,35 @@ def gla_chunked_fused(q, k, v, log_a, lengths, initial_state):
     if state.numel() == 0:
         return o, state
     lib = _build.library()
-    err = lib.prfaas_gla_fused(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
-        lengths.data_ptr(), initial_state.data_ptr(), o.data_ptr(),
-        state.data_ptr(), B, H, S, dk, dv, _build.dtype_code(q),
-        _build.stream_ptr(q))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr())
+    tail = (initial_state.data_ptr(), o.data_ptr(), state.data_ptr(), B, H,
+            S, dk, dv, _build.dtype_code(q), _build.stream_ptr(q))
+    if lengths is None:
+        err = lib.prfaas_gla_chunked(*ptrs, *tail)
+    else:
+        err = lib.prfaas_gla_fused(*ptrs, lengths.data_ptr(), *tail)
     _build.check(name, err)
     _build.LAUNCHES[name] += 1
     return o, state
+
+
+def gla_chunked_fused(q, k, v, log_a, lengths, initial_state):
+    """The CUDA kernel, masked instance: the chunked scan in one launch.
+    q, k, v contiguous CUDA tensors of one dtype (float32 or bfloat16);
+    log_a and initial_state float32; lengths int32.  Rows at or past
+    lengths[b] are neutralized by selection (k, v -> 0, log_a -> 0), so the
+    final state is the state after each row's real tokens; output rows
+    there are unspecified, as in the TPU kernel."""
+    return _launch("gla_chunked_fused", q, k, v, log_a, lengths,
+                   initial_state)
+
+
+def gla_chunked(q, k, v, log_a, initial_state):
+    """The CUDA kernel, unmasked instance (the TPU kernel
+    ``src/repro/kernels/gla.py::gla_chunked``): every row valid, as in
+    training.  Same tensors as :func:`gla_chunked_fused` without
+    ``lengths``; its plain version is :func:`gla_chunked_ref`."""
+    return _launch("gla_chunked", q, k, v, log_a, None, initial_state)
 
 
 def gla_step_ref(q, k, v, log_a, state):

@@ -1,5 +1,6 @@
-"""Model API of the serving path: prefill / prefill_chunk / last_logits /
-decode_step, plus the decode cache builders.
+"""Model API: prefill / prefill_chunk / last_logits / decode_step of the
+serving path, train_loss of the training path, plus the decode cache
+builders.
 
 Counterpart of ``src/repro/models/model.py``.  Parameters are the
 reference's tree as plain dicts of tensors (``repro_torch.params``), with
@@ -19,11 +20,15 @@ The serving path's MoE is always the exact dropless form (the reference's
 inference default).  Architectures whose blocks the port does not serve
 yet (encoders, image prefixes, cross-attention, sliding windows, mixers
 other than KDA/GDN, Mamba2, GQA and MLA) raise ``NotImplementedError`` at
-construction.
+construction.  Training (``train_loss``) builds no caches; it runs dense
+and FFN-less blocks, and raises ``NotImplementedError`` on a MoE block
+(capacity MoE and its aux loss are ROADMAP A10).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttentionSpec, BlockSpec, ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -65,6 +70,17 @@ def _block_params(g, gp, r: int):
             for bi, b in enumerate(g.blocks)}
 
 
+def _unbind_reps(tree, R: int):
+    """The ``R`` repeats of a stacked (R, ...) tree, each leaf split by one
+    ``unbind``, whose backward stacks the repeats' gradients once (a
+    ``x[r]`` per repeat would materialise a zero (R, ...) gradient for
+    each)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind_reps(v, R) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(R)]
+    return list(tree.unbind(0))
+
+
 def _stack(trees):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
@@ -90,12 +106,20 @@ def _stack_reps(reps, prior):
 class Model:
     """Functional model over a parameter tree; ``use_kernels=False`` routes
     every kernel op to its plain PyTorch version on any device (for the
-    comparisons in tests and ``chip_smoke.py``)."""
+    comparisons in tests and ``chip_smoke.py``).  ``remat``: training
+    recomputes each repeat's activations in the backward
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``."""
 
-    def __init__(self, cfg: ModelConfig, use_kernels: bool = True):
+    # sequence chunk of the cross-entropy: bounds the transient (B, C, V)
+    # float32 logits
+    CE_CHUNK = 512
+
+    def __init__(self, cfg: ModelConfig, use_kernels: bool = True,
+                 remat: bool = False):
         _check_supported(cfg)
         self.cfg = cfg
         self.use_kernels = use_kernels
+        self.remat = remat
 
     # ------------------------------------------------------------ blocks
     def _ffn(self, spec: BlockSpec, p, x):
@@ -166,12 +190,77 @@ class Model:
                                    else caches[gi]))
         return x, out
 
+    def _train_groups(self, params, x, positions):
+        """Every group's repeats in order, building no caches; each repeat
+        under ``checkpoint`` with ``remat``."""
+        for g, gp in zip(self.cfg.groups, params["groups"]):
+            reps = (_unbind_reps(gp["stacked"], g.repeats) if gp["stacked"]
+                    else [{}] * g.repeats)
+
+            def body(x, pr, _g=g, _gp=gp):
+                for bi, b in enumerate(_g.blocks):
+                    key = f"b{bi}"
+                    p = _gp["shared"][key] if b.shared else pr[key]
+                    x, _ = self._apply_block(b, p, x, positions, None)
+                return x
+
+            for pr in reps:
+                x = (checkpoint(body, x, pr, use_reentrant=False)
+                     if self.remat else body(x, pr))
+        return x
+
     def _logits(self, params, x):
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
         return x.float() @ w.float()
 
     # --------------------------------------------------------------- API
+    def train_loss(self, params, batch):
+        """batch: {"tokens": (B, S + 1) int}.  Mean next-token
+        cross-entropy of ``tokens[:, 1:]`` given ``tokens[:, :-1]``.
+        Returns (total, {"ce", "aux"}): ``aux`` is the MoE load-balance
+        loss, a float32 zero for the dense and FFN-less blocks trained
+        here, so ``total`` is ``ce``."""
+        cfg = self.cfg
+        if any(b.ffn.kind == "moe" for g in cfg.groups for b in g.blocks):
+            raise NotImplementedError("training a MoE block (capacity MoE "
+                                      "and its aux loss) is not ported yet "
+                                      "(ROADMAP A10)")
+        tokens = torch.as_tensor(batch["tokens"]).to(
+            params["embed"].device).long()
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        B, S = inputs.shape
+        x = params["embed"][inputs]
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        x = self._train_groups(params, x, positions)
+        loss = self._chunked_ce(params, x, labels)
+        return loss, {"ce": loss, "aux": torch.zeros(
+            (), dtype=torch.float32, device=x.device)}
+
+    def _ce_chunk(self, params, xb, lb, vb):
+        """Summed log-likelihood of one chunk's valid labels."""
+        logp = torch.log_softmax(self._logits(params, xb), dim=-1)
+        ll = torch.gather(logp, -1, lb[..., None])[..., 0]
+        return torch.sum(ll * vb[None, :])
+
+    def _chunked_ce(self, params, x, labels):
+        """Exact mean CE over chunks of ``CE_CHUNK`` positions (the last
+        padded and masked), each chunk's logits recomputed in the backward:
+        the (B, S, V) logits never exist at once."""
+        B, S, _ = x.shape
+        C = min(self.CE_CHUNK, S)
+        pad = (-S) % C
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+            labels = F.pad(labels, (0, pad))
+        valid = (torch.arange(S + pad, device=x.device) < S).float()
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, S + pad, C):
+            total = total + checkpoint(
+                self._ce_chunk, params, x[:, c0:c0 + C],
+                labels[:, c0:c0 + C], valid[c0:c0 + C], use_reentrant=False)
+        return -total / (B * S)
+
     def prefill(self, params, batch):
         """batch: {"tokens": (B, S) int, "lengths": (B,) optional}.
         Returns (last-token logits (B, V) float32, caches).  With

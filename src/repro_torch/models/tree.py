@@ -30,3 +30,18 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_flatten_with_path(tree, path: str = "") -> list:
+    """[(path, leaf)] in the reference's pytree order (dict keys sorted,
+    list items in order), each path spelled as
+    ``jax.tree_util.keystr`` spells it, e.g.
+    ``"['groups'][0]['stacked']['b0']['mixer']['A_log']"``.  AdamW's decay
+    mask and the checkpoint keys read these names."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_flatten_with_path(tree[k], f"{path}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_flatten_with_path(v, f"{path}[{i}]")]
+    return [(path, tree)]

@@ -22,6 +22,7 @@ import torch
 from repro_torch.configs.base import (AttentionSpec, BlockSpec, FFNSpec,
                                       ModelConfig)
 from repro_torch.models.model import _check_supported, torch_dtype
+from repro_torch.models.tree import tree_leaves
 
 
 def _to_tensor(x, device):
@@ -30,6 +31,14 @@ def _to_tensor(x, device):
         bits = np.ascontiguousarray(x).view(np.uint16)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
+def requires_grad(tree, flag: bool = True):
+    """Mark every leaf of ``tree`` (in place) as a leaf tensor that
+    autograd differentiates (``flag``) or not; returns ``tree``."""
+    for leaf in tree_leaves(tree):
+        leaf.requires_grad_(flag)
+    return tree
 
 
 def from_numpy_tree(tree, device="cuda"):

@@ -3,6 +3,8 @@ one smoke architecture (``kimi-linear-1t`` unless named) in both
 frameworks, the reference's params carried into the port, and
 leaf-by-leaf tree comparison."""
 import dataclasses
+import importlib.util
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +17,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.params import from_numpy_tree
 
 ARCH = "kimi-linear-1t"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def with_q_rank(cfg, rank: int):
@@ -85,7 +88,10 @@ def flatten(tree, path=""):
     if isinstance(tree, (list, tuple)):
         return [x for i, v in enumerate(tree) for x in flatten(v, f"{path}/{i}")]
     if isinstance(tree, torch.Tensor):
-        return [(path, tree.detach().cpu().numpy())]
+        t = tree.detach().cpu()
+        if t.dtype == torch.bfloat16:         # numpy's bfloat16, same bits
+            return [(path, t.view(torch.int16).numpy().view(jnp.bfloat16))]
+        return [(path, t.numpy())]
     return [(path, np.asarray(tree))]
 
 
@@ -104,3 +110,14 @@ def assert_trees_identical(jtree, ttree):
     for (path, a), (_, b) in zip(ja, ta):
         assert a.shape == b.shape and a.dtype.itemsize == b.dtype.itemsize, path
         assert a.tobytes() == b.tobytes(), path
+
+
+def reference_recipe(scale: str):
+    """The reference's KDA:MLA training recipe config,
+    ``examples/train_100m.py::hybrid_lm(scale)`` (a script, loaded by
+    path)."""
+    spec = importlib.util.spec_from_file_location(
+        "reference_train_100m", ROOT / "examples" / "train_100m.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.hybrid_lm(scale)

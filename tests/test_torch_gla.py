@@ -95,11 +95,11 @@ def test_gla_plain_matches_reference(B, H, S, dk, dv, lens):
         np.testing.assert_array_equal(st.numpy(), s0)
 
 
-@pytest.mark.parametrize("S", [70, 6])
+@pytest.mark.parametrize("S", [70, 6, 100])
 def test_gla_without_lengths_matches_reference(S):
-    """``lengths=None``: every row counts (the port runs the fused form at
-    full lengths); against the reference's unmasked Pallas kernel, its
-    ``ops.gla`` and the sequential oracle."""
+    """``lengths=None``: every row counts (the plain chunked form alone, the
+    plain version of the unmasked kernel, row 6); against the reference's
+    unmasked Pallas kernel, its ``ops.gla`` and the sequential oracle."""
     B, H, dk, dv = 2, 2, 16, 24
     q, k, v, la, s0 = _inputs(1, B, H, S, dk, dv)
     o, st = ops.gla(*map(torch.from_numpy, (q, k, v, la, s0)))

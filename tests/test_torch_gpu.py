@@ -12,7 +12,10 @@ sums run in other orders); bfloat16 outputs 2e-3, 2e-2 (a bf16 ulp is 2^-8
 of the value, and the outputs of unit inputs are as small as ~0.02); the
 delta rule and gated linear attention 1e-4, 1e-3 (as
 ``tests/test_kernels_delta.py``) for their float32 state at either input
-dtype and their float32 output; quantize byte-identical.
+dtype and their float32 output; quantize byte-identical; the gradients of
+the differentiable ops through their kernel forward 1e-5, 1e-5 against
+autograd through the plain version (the backward recomputes the same
+plain version, so only the card's summation order can differ).
 """
 import numpy as np
 import pytest
@@ -21,10 +24,11 @@ import torch
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.decode_attn import (decode_attention,
                                              decode_attention_ref)
-from repro_torch.kernels.delta import (delta_chunked_fused, delta_chunked_ref,
-                                       mask_padded)
+from repro_torch.kernels.delta import (delta_chunked, delta_chunked_fused,
+                                       delta_chunked_ref, mask_padded)
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
-from repro_torch.kernels.gla import gla_chunked_fused, gla_chunked_ref
+from repro_torch.kernels.gla import (gla_chunked, gla_chunked_fused,
+                                     gla_chunked_ref)
 from repro_torch.kernels.paged_decode_attn import (
     paged_decode_attention, paged_decode_attention_ref)
 from repro_torch.kernels.paged_prefill_attn import (
@@ -173,7 +177,97 @@ def test_gla_op_routes_cuda_tensors_to_the_kernel(cuda):
     ops.gla(q, q, q, torch.zeros((1, 2, 16), device=cuda))
     ops.gla(q, q, q, torch.zeros((1, 2, 16), device=cuda),
             lengths=torch.tensor([9], device=cuda))
-    assert dict(build.LAUNCHES) == {"gla_chunked_fused": 2}
+    assert dict(build.LAUNCHES) == {"gla_chunked": 1, "gla_chunked_fused": 1}
+
+
+def _unmasked_inputs(op, g, B, H, S, dk, dv, dtype, dev):
+    """Inputs of the unmasked scans (no NaN: every row is valid)."""
+    if op == "delta":
+        return _delta_inputs(g, B, H, S, dk, dv, dtype, dev)
+    return _gla_inputs(g, B, H, S, dk, dv, torch.full(
+        (B,), S, dtype=torch.int32, device=dev), dtype, dev)
+
+
+_UNMASKED = {"delta": (delta_chunked, delta_chunked_ref),
+             "gla": (gla_chunked, gla_chunked_ref)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op,B,H,S,dk,dv", [
+    ("gla", 2, 4, 100, 64, 128),           # S not a multiple of 64
+    ("gla", 2, 3, 100, 64, 48),            # dv 48: a partial column slice
+    ("gla", 1, 2, 4096, 64, 128),          # the zamba2 head
+    ("delta", 2, 4, 100, 64, 64),          # the KDA:MLA recipe's head
+    ("delta", 2, 3, 100, 32, 48),          # a partial column slice
+    ("delta", 1, 2, 4096, 128, 128),       # the kimi-linear head
+])
+def test_unmasked_scans_match_plain(cuda, dtype, op, B, H, S, dk, dv):
+    """Rows 5 and 6: the unmasked kernels against their plain versions,
+    nonzero initial state; output and state at the delta/gla tolerances."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    args = _unmasked_inputs(op, g, B, H, S, dk, dv, dtype, cuda)
+    kernel, plain = _UNMASKED[op]
+    o, st = kernel(*args)
+    torch.cuda.synchronize()
+    o2, st2 = plain(*args)
+    otol = (1e-4, 1e-3) if dtype == torch.float32 else TOL[dtype]
+    assert torch.isfinite(o.float()).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(o.float(), o2.float(), atol=otol[0],
+                               rtol=otol[1])
+    torch.testing.assert_close(st, st2, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("op", ["delta", "gla"])
+def test_unmasked_equals_masked_at_full_lengths(cuda, op):
+    """The two instances of one template agree bit for bit when every row
+    is valid."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    B, H, S = 2, 3, 300
+    args = _unmasked_inputs(op, g, B, H, S, 64, 128, torch.bfloat16, cuda)
+    full = torch.full((B,), S, dtype=torch.int32, device=cuda)
+    o, st = _UNMASKED[op][0](*args)
+    if op == "delta":
+        o2, st2 = delta_chunked_fused(*args[:5], full, args[5])
+    else:
+        o2, st2 = gla_chunked_fused(*args[:4], full, args[4])
+    assert torch.equal(o, o2) and torch.equal(st, st2)
+
+
+@pytest.mark.parametrize("op,lens", [("attention", None), ("gla", None),
+                                     ("gla", (300, 129)), ("delta", None),
+                                     ("delta", (300, 129))])
+def test_kernel_forward_grads_equal_plain_autograd(cuda, op, lens):
+    """Each differentiable op on CUDA (kernel forward, plain recompute in
+    the backward) gives the gradients of autograd through its plain
+    version, for every input, in float32."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    B, H, S, dk, dv = 2, 4, 300, 64, 128
+    if op == "attention":
+        args = (_randn(g, (B, 8, S, 96), torch.float32, cuda),
+                _randn(g, (B, 4, S, 96), torch.float32, cuda),
+                _randn(g, (B, 4, S, 64), torch.float32, cuda))
+    else:
+        args = _unmasked_inputs(op, g, B, H, S, dk, dv, torch.float32, cuda)
+    kw = {} if lens is None else {"lengths": torch.tensor(
+        lens, dtype=torch.int32, device=cuda)}
+    ups = None
+
+    def grads(use_kernel):
+        nonlocal ups
+        xs = [a.detach().clone().requires_grad_() for a in args]
+        out = getattr(ops, op)(*xs, use_kernel=use_kernel, **kw)
+        outs = out if isinstance(out, tuple) else (out,)
+        if ups is None:
+            ups = [_randn(g, o.shape, torch.float32, cuda) for o in outs]
+        return torch.autograd.grad(outs, xs, ups)
+
+    build.reset_launches()
+    got = grads(True)
+    assert sum(build.LAUNCHES.values()) == 1
+    want = grads(False)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("shape", [(7,), (4096, 472), (1, 1, 1000, 64),
@@ -201,7 +295,7 @@ def test_ops_route_cuda_tensors_to_kernels(cuda):
     assert dict(build.LAUNCHES) == {"flash_attention": 1,
                                     "decode_attention": 1,
                                     "quantize_int8_fused": 1,
-                                    "delta_chunked_fused": 1}
+                                    "delta_chunked": 1}
 
 
 def _paged_pools(g, dev, dtype, B, Hkv, T, N, Dk, Dv, lengths):

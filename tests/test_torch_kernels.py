@@ -191,7 +191,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serving, repro_torch.launch.serve, "
             "repro_torch.params, repro_torch.models.paged, "
             "repro_torch.kernels.paged_decode_attn, "
-            "repro_torch.kernels.paged_prefill_attn; "
+            "repro_torch.kernels.paged_prefill_attn, repro_torch.training, "
+            "repro_torch.distributed.collectives, repro_torch.launch.train, "
+            "repro_torch.examples.train_100m; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
