@@ -11,7 +11,11 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      per source, all at once);
   3. hold each of the nine kernels against its plain PyTorch version on
      the card at the main paths' full-width shapes, and time kernel, plain
-     version and (for the attention kernels) PyTorch's SDPA as a yardstick;
+     version and (for the attention kernels) PyTorch's SDPA as a yardstick
+     (flash and paged prefill also give their achieved TFLOP/s and share of
+     the bound, and are checked also at mistral-nemo's dense GQA chunks
+     and zamba2's paged MHA suffix, so at each bf16 core instance a main
+     path runs);
      then each differentiable op (attention, gla and delta, with and
      without lengths) at the training paths' shapes and types: its kernel
      forward against the plain version's outputs, and its gradients
@@ -41,11 +45,13 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      step of mistral-nemo-12b and of zamba2-1.2b, recorded in bf16 and held
      in float32 (over their 38-40 layers bf16 rounding flips compound by
      themselves: ~2 % on mistral-nemo, ~11 % on zamba2's prefill, on an
-     H100); time the MLA paged decode's whole-pool [ckv, kpe]
+     H100), and zamba2's bf16 prefill logits through the kernels no
+     further from the float32 plain logits than 1.5x the plain bf16
+     logits' distance; time the MLA paged decode's whole-pool [ckv, kpe]
      concatenation against a decode step; and profile one paged decode
      block of mistral-nemo-12b and of zamba2-1.2b, and one 4096-token
-     prefill of zamba2-1.2b (``torch.profiler``: device busy time and the
-     largest kernels);
+     prefill of each (``torch.profiler``: device busy time, the largest
+     kernels and the flash kernels' share);
   6. the training path on ``zamba2-1.2b`` at full width and depth: four
      AdamW steps of 2 x 2048 tokens in two microbatches with remat
      through ``make_train_step`` (the Mamba2 mixers on the unmasked GLA
@@ -92,6 +98,10 @@ TOL_TRAIN_GRAD = 1e-3
 # the kernels from the float32 plain gradients of the same weights, as a
 # multiple of that of the bf16 plain gradients
 TOL_BF16_GRAD_RATIO = 1.5
+# the same for zamba2's bf16 prefill logits: their relative L2 distance
+# from the float32 plain logits through the kernels, as a multiple of that
+# through the plain versions
+TOL_BF16_LOGIT_RATIO = 1.5
 # first-token logits through kernels vs plain versions, bf16 model: the
 # largest difference may be this fraction of the largest |logit|
 TOL_LOGITS = 2e-2
@@ -180,15 +190,31 @@ def check_kernels(torch, dev):
     oc_ref = flash_attention_ref(qc, kc, vc, causal=True, scale=scale,
                                  q_offset=4096)
     e2 = close("flash_attention (q_offset)", oc, oc_ref, *TOL_BF16)
+    checked = {"mla": e1, "mla_q_offset_4096": e2}
+    needed = [atol_needed(o, o_ref), atol_needed(oc, oc_ref)]
+    del qc, kc, vc, oc, oc_ref
+    # mistral-nemo's dense GQA prefill chunks (Hq 32 over Hkv 8, D 128: the
+    # core's 128-key tile), the first and one at q_offset 4096
+    for off in (0, 4096):
+        qg = randn(1, 32, 4096, 128)
+        kg, vg = randn(1, 8, off + 4096, 128), randn(1, 8, off + 4096, 128)
+        og = flash_attention(qg, kg, vg, causal=True, q_offset=off)
+        torch.cuda.synchronize()
+        og_ref = flash_attention_ref(qg, kg, vg, causal=True, q_offset=off)
+        checked[f"gqa_q_offset_{off}"] = close(
+            f"flash_attention (GQA, q_offset {off})", og, og_ref, *TOL_BF16)
+        needed.append(atol_needed(og, og_ref))
+        del qg, kg, vg, og, og_ref
     S = 2048
     pairs = S * (S + 1) // 2
-    bnd = _bound(_nbytes(q, k, v, o), 2 * H * pairs * (Dk + Dv), BF16_FLOP_S)
+    flops = 2 * H * pairs * (Dk + Dv)
+    bnd = _bound(_nbytes(q, k, v, o), flops, BF16_FLOP_S)
+    t = _ms(lambda: flash_attention(q, k, v, causal=True, scale=scale), 10)
     out["flash_attention"] = dict(
         source="src/repro_torch/csrc/flash_attn.cu",
         replaces="src/repro/kernels/flash_attn.py:119",
-        max_abs_err=max(e1, e2),
-        atol_needed=max(atol_needed(o, o_ref), atol_needed(oc, oc_ref)),
-        ms=_ms(lambda: flash_attention(q, k, v, causal=True, scale=scale), 10),
+        max_abs_err=max(checked.values()), atol_needed=max(needed),
+        checked=checked, ms=t, tflops=flops / t / 1e9, bound_share=bnd[0] / t,
         plain_ms=_ms(lambda: flash_attention_ref(q, k, v, causal=True,
                                                  scale=scale), 3),
         bound_ms=bnd[0], bound_by=bnd[1],
@@ -196,7 +222,9 @@ def check_kernels(torch, dev):
             q, k, v, is_causal=True, scale=scale), 10),
         shape="q (1,64,2048,192) k (1,64,2048,192) v (1,64,2048,128) bf16, "
               "causal; checked also at 2048 queries over 6144 keys, "
-              "q_offset 4096")
+              "q_offset 4096, and at mistral-nemo's GQA chunk q "
+              "(1,32,4096,128) over k, v (1,8,4096|8192,128), q_offset 0 "
+              "and 4096")
 
     # decode: absorbed MLA, Hq = 64 over Hkv = 1, Dk = 536, Dv = 472
     B, S, Dk, Dv = 8, 16384, 536, 472
@@ -613,6 +641,21 @@ def check_paged_kernels(torch, dev, g, randn, close, atol_needed):
         errs.append(close(f"paged_prefill_attention (Ssuf {Ssuf})", o,
                           o_ref, *TOL_BF16))
         needed.append(atol_needed(o, o_ref))
+    checked = {f"gqa_suffix_{n}": e for n, e in zip((2048, 4096), errs)}
+    # zamba2's prefix-hit suffix chunk: MHA (32 heads of 64, the core's
+    # 128-key tile) over the 312 pages of its 4992-token prefix, one chunk
+    # of 1024 (the 600-token turn's bucket)
+    kz, vz = randn(32, 1024, T, 64), randn(32, 1024, T, 64)
+    tz = _paged_tables(torch, dev, g, [312 * T], T, 312, 1024)
+    qz, ksz, vsz = (randn(1, 32, 1024, 64) for _ in range(3))
+    o = paged_prefill_attention(qz, kz, vz, tz, ksz, vsz)
+    torch.cuda.synchronize()
+    o_ref = paged_prefill_attention_ref(qz, kz, vz, tz, ksz, vsz)
+    checked["mha_d64_zamba2"] = close(
+        "paged_prefill_attention (zamba2 MHA, D 64)", o, o_ref, *TOL_BF16)
+    errs.append(checked["mha_d64_zamba2"])
+    needed.append(atol_needed(o, o_ref))
+    del kz, vz, tz, qz, ksz, vsz, o, o_ref
     ks, vs = randn(1, Hkv, C, D), randn(1, Hkv, C, D)
     prior = Np * T
     pairs = C * prior + C * (C + 1) // 2
@@ -624,12 +667,13 @@ def check_paged_kernels(torch, dev, g, randn, close, atol_needed):
         Hq // Hkv, dim=1)
     mask = (torch.arange(prior + C, device=dev)[None, :]
             <= prior + torch.arange(C, device=dev)[:, None])
+    t = _ms(lambda: paged_prefill_attention(q, kp, vp, tables, ks, vs), 5)
     out["paged_prefill_attention"] = dict(
         source="src/repro_torch/csrc/paged_prefill_attn.cu",
         replaces="src/repro/kernels/paged_prefill_attn.py:129",
-        max_abs_err=max(errs), atol_needed=max(needed),
-        ms=_ms(lambda: paged_prefill_attention(q, kp, vp, tables, ks, vs),
-               5),
+        max_abs_err=max(errs), atol_needed=max(needed), checked=checked,
+        ms=t, tflops=2 * Hq * pairs * 2 * D / t / 1e9,
+        bound_share=bnd[0] / t,
         plain_ms=_ms(lambda: paged_prefill_attention_ref(
             q, kp, vp, tables, ks, vs), 2),
         bound_ms=bnd[0], bound_by=bnd[1],
@@ -637,8 +681,10 @@ def check_paged_kernels(torch, dev, g, randn, close, atol_needed):
             q, kd, vd, attn_mask=mask), 5),
         shape="q (1,32,2048,128) over 512 prior pages of 16 (pools "
               "(8,8193,16,128)) + suffix of 2048 keys, bf16, timed; checked "
-              "also with a 4096-key suffix; SDPA on the gathered cache with "
-              "K/V repeated to 32 heads and a boolean mask")
+              "also with a 4096-key suffix and at zamba2's q (1,32,1024,64) "
+              "over 312 pages of 16 (pools (32,1024,16,64)) + 1024 suffix "
+              "keys; SDPA on the gathered cache with K/V repeated to 32 "
+              "heads and a boolean mask")
     return out
 
 
@@ -764,9 +810,9 @@ def _logit_check(torch, what, got, want, gate=True):
             "argmax_agreement": same}
 
 
-def compare_logits(torch, dev, cfg, params, gate=True):
+def compare_logits(torch, dev, cfg, params, gate=True, keep=None):
     """Phase 5: one bucketed prefill batch through the kernels and through
-    the plain versions."""
+    the plain versions (both kept in ``keep``, as float32, when given)."""
     from repro_torch.models import Model
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -777,7 +823,30 @@ def compare_logits(torch, dev, cfg, params, gate=True):
         got, _ = Model(cfg).prefill(params, {"tokens": toks, "lengths": lens})
         want, _ = Model(cfg, use_kernels=False).prefill(
             params, {"tokens": toks, "lengths": lens})
+    if keep is not None:
+        keep.update(kernels=got.float(), plain=want.float())
     return _logit_check(torch, f"{cfg.name} first-token", got, want, gate)
+
+
+def bf16_logit_witness(torch, bf16, f32_plain):
+    """The bf16 prefill logits through the kernels and through the plain
+    versions, each against the float32 plain logits of the same weights
+    (relative L2 distance and largest difference over the largest
+    |logit|); gated: the kernels' distance within TOL_BF16_LOGIT_RATIO of
+    the plain versions', which is what bf16 rounding alone does."""
+    out = {}
+    for path in ("kernels", "plain"):
+        d = bf16[path] - f32_plain
+        out[f"{path}_bf16_rel_l2_from_f32"] = float(d.norm() / f32_plain.norm())
+        out[f"{path}_bf16_max_abs_frac_from_f32"] = float(
+            d.abs().max() / f32_plain.abs().max())
+    out["ratio"] = (out["kernels_bf16_rel_l2_from_f32"]
+                    / out["plain_bf16_rel_l2_from_f32"])
+    if not out["ratio"] <= TOL_BF16_LOGIT_RATIO:
+        fail(f"bf16 prefill logits through the kernels are further from the "
+             f"float32 ones than the plain versions' by more than "
+             f"{TOL_BF16_LOGIT_RATIO}x: {out}")
+    return out
 
 
 def _paged_engine(torch, cfg, params, lens, capacity, seed):
@@ -880,7 +949,9 @@ def mla_concat_cost(torch, dev, cfg, params):
 def _profiled(torch, fn):
     """Host wall of one ``fn()`` after a warm-up, then one more under
     ``torch.profiler``: the device's busy time (the sum of its kernels),
-    its share of the wall, and the five kernels that take most of it."""
+    its share of the wall, the five kernels that take most of it, and the
+    share of the busy time in the flash kernels (both cores of rows 1 and
+    9)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()                               # warm-up
@@ -900,8 +971,13 @@ def _profiled(torch, fn):
         fail("the profiler recorded no device time")
     busy = sum(ms for _, ms, _ in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:5]
+    flash = [(ms, c) for n, ms, c in kernels
+             if "flash_wgmma" in n or "flash_core" in n]
     return {"wall_ms": wall_ms, "device_busy_ms_profiled": busy,
             "device_busy_share": busy / wall_ms,
+            "flash_ms": sum(ms for ms, _ in flash),
+            "flash_launches": sum(c for _, c in flash),
+            "flash_share_of_busy": sum(ms for ms, _ in flash) / busy,
             "top_kernels": [{"name": n[:80], "ms": ms, "launches": c}
                             for n, ms, c in top]}
 
@@ -1008,13 +1084,18 @@ def zamba2_paths(torch, dev, paths, launches):
     paths["zamba2_prefill_profile"] = profile_prefill(torch, dev, cfg,
                                                       params)
     torch.cuda.empty_cache()
+    bf16 = {}
     paths["zamba2_logits_bf16"] = compare_logits(torch, dev, cfg, params,
-                                                 gate=False)
+                                                 gate=False, keep=bf16)
     paths["zamba2_paged_step_bf16"] = compare_paged_step(torch, dev, cfg,
                                                          params, gate=False)
     cfg, params = to_float32(cfg, params)
     torch.cuda.empty_cache()
-    paths["zamba2_logits_f32"] = compare_logits(torch, dev, cfg, params)
+    f32 = {}
+    paths["zamba2_logits_f32"] = compare_logits(torch, dev, cfg, params,
+                                                keep=f32)
+    paths["zamba2_logits_bf16_witness"] = bf16_logit_witness(
+        torch, bf16, f32["plain"])
     paths["zamba2_paged_step_f32"] = compare_paged_step(torch, dev, cfg,
                                                         params)
 
@@ -1201,6 +1282,12 @@ def hybrid_train(torch, dev):
             "launches": launches}
 
 
+# what some kernel entries add to the keys every entry has: achieved rate,
+# share of the bound and the error at each checked shape (rows 1 and 9),
+# the GQA shape's numbers (row 8)
+_EXTRA_KEYS = ("tflops", "bound_share", "checked", "gqa")
+
+
 def gc_cuda(torch):
     import gc
     gc.collect()
@@ -1260,10 +1347,12 @@ def main():
 
     kernels = check_kernels(torch, dev)
     for name, k in kernels.items():
+        rate = (f", {k['tflops']:.1f} TFLOP/s, {k['bound_share']:.3f} of "
+                f"the bound" if "tflops" in k else "")
         print(f"check {name}: max_abs_err {k['max_abs_err']:.3e} (atol "
               f"needed at rtol {TOL_BF16[1]}: {k['atol_needed']:.3e}), "
               f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound "
-              f"{k['bound_ms']:.4f} ms by {k['bound_by']})", flush=True)
+              f"{k['bound_ms']:.4f} ms by {k['bound_by']}{rate})", flush=True)
     grad_checks = check_grads(torch, dev)
     print(f"training-shape op checks (forward error; gradient difference "
           f"/ largest gradient): {grad_checks}", flush=True)
@@ -1312,6 +1401,8 @@ def main():
     paths["mistral_paged"] = summary
     paths["mistral_decode_profile"] = profile_decode_block(torch, dev, cfg,
                                                            params)
+    paths["mistral_prefill_profile"] = profile_prefill(torch, dev, cfg,
+                                                       params)
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
     print(f"mistral_paged: {summary['wall_s']:.2f} s wall, launches {counts}",
@@ -1364,7 +1455,7 @@ def main():
                     plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
                     bound_by=k["bound_by"], library_ms=k["library_ms"],
                     atol_needed=k["atol_needed"], shape=k["shape"],
-                    **({"gqa": k["gqa"]} if "gqa" in k else {}))
+                    **{key: k[key] for key in _EXTRA_KEYS if key in k})
                for name, k in kernels.items()]
     missing = [e["name"] for e in entries if e["launches"] <= 0]
     if missing:

@@ -3,21 +3,23 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attn.py::flash_attention
 // (pallas_call at flash_attn.py:119): the MLA prefill in its decompressed
 // MHA form (Hq = Hkv = 64, Dk = 192, Dv = 128 at full width), the GQA
-// prefill of mistral-nemo-12b (Hq = 32 over Hkv = 8, D = 128) and the
-// chunked-prefill suffix queries over a prior cache (q_offset > 0).
+// prefill of mistral-nemo-12b (Hq = 32 over Hkv = 8, D = 128), zamba2's
+// shared MHA block (D = 64), the chunked-prefill suffix queries over a
+// prior cache (q_offset > 0) and the training forwards.
 //
-// What bounds it on the H100: operations.  A 4096-token causal chunk does
-// ~2 * 64 * 4096^2 / 2 * (192 + 128) FLOPs over a few tens of MB of Q/K/V,
-// far above the card's ~295 FLOP/byte ridge.  This first version runs the
-// products in float32 on the SIMT cores (no tensor cores yet), so it is
-// bound by the FP32 FMA rate; wgmma on bf16 tiles is the later step.
+// What bounds it on the H100: operations.  A 2048-token causal MLA chunk
+// does 2 * 64 * 2048 * 2049 / 2 * (192 + 128) = 8.6e10 FLOPs over ~120 MB
+// of Q/K/V/O, ~700 FLOP/byte, above the card's ~295 FLOP/byte ridge.
 //
-// Design (flash_core.cuh, shared with the paged-prefill kernel): a block
-// owns 64 query rows of one (batch, head) and walks only the 64-key tiles
-// its rows can see, online softmax in registers, SIMT float32 products.
-// Here key kk of (row b, head hk) is row (b * Hkv + hk) * Sk + kk of the
-// dense K and V.
+// Design: bf16 runs the tensor-core core of flash_wgmma.cuh (wgmma for
+// Q K^T and P V, a TMA ring of K/V tiles fed by a producer warpgroup, 128
+// query rows a block, causal and window tile skipping); key kk of (row b,
+// head hk) is row kk of the 3-D TMA map over (B * Hkv, Sk, D).  float32
+// keeps the SIMT core of flash_core.cuh (a tensor-core float32 product is
+// TF32, short of the float32 tolerance): 64 query rows a block, float32
+// FMAs.
 #include "flash_core.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -35,6 +37,35 @@ struct DenseKeys {
   }
 };
 
+cudaError_t run_bf16(const void* q, const void* k, const void* v, void* o,
+                     int B, int Hq, int Hkv, int Sq, int Sk, int Dk, int Dv,
+                     int q_offset, int causal, int window, float scale,
+                     cudaStream_t s) {
+  using namespace flash_wgmma;
+  if (!shapes_ok(Dk, Dv, Hq, Hkv, {q, k, v, o})) return cudaErrorInvalidValue;
+  if (Sk == 0)  // no key: every row writes 0
+    return cudaMemsetAsync(o, 0, (size_t)B * Hq * Sq * Dv * 2, s);
+  const int bk = tile_keys((Dk + 63) / 64, (Dv + 63) / 64);
+  Params p{};
+  cudaError_t err = make_map(&p.tq, q, Dk, Sq, (uint64_t)B * Hq, BQ);
+  if (err == cudaSuccess)
+    err = make_map(&p.tk, k, Dk, Sk, (uint64_t)B * Hkv, bk);
+  if (err == cudaSuccess)
+    err = make_map(&p.tv, v, Dv, Sk, (uint64_t)B * Hkv, bk);
+  if (err != cudaSuccess) return err;
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.Dv = Dv;
+  p.q_offset = q_offset;
+  p.causal = causal;
+  p.window = window;
+  p.scale_log2 = scale_log2(scale);
+  return dispatch</*kPaged=*/false>(p, B, Dk, s);
+}
+
 template <typename T>
 cudaError_t run(const void* q, const void* k, const void* v, void* o, int B,
                 int Hq, int Hkv, int Sq, int Sk, int Dk, int Dv, int q_offset,
@@ -48,7 +79,8 @@ cudaError_t run(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q (B,Hq,Sq,Dk), k (B,Hkv,Sk,Dk), v (B,Hkv,Sk,Dv) -> o (B,Hq,Sq,Dv),
-// all contiguous and of one dtype (kF32 or kBF16).
+// all contiguous and of one dtype (kF32 or kBF16; bf16 head dims multiples
+// of 8 up to 256 and 16-byte aligned pointers).
 PRFAAS_API int prfaas_flash_attention(const void* q, const void* k,
                                       const void* v, void* o, int B, int Hq,
                                       int Hkv, int Sq, int Sk, int Dk, int Dv,
@@ -56,8 +88,8 @@ PRFAAS_API int prfaas_flash_attention(const void* q, const void* k,
                                       float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return run<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, Dk, Dv,
-                              q_offset, causal, window, scale, s);
+    return run_bf16(q, k, v, o, B, Hq, Hkv, Sq, Sk, Dk, Dv, q_offset, causal,
+                    window, scale, s);
   if (dtype == kF32)
     return run<float>(q, k, v, o, B, Hq, Hkv, Sq, Sk, Dk, Dv, q_offset,
                       causal, window, scale, s);

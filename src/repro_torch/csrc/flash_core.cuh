@@ -1,5 +1,6 @@
 // Causal / windowed GQA flash attention with a query offset, shared by the
-// dense flash kernel and the paged-prefill kernel.
+// dense flash kernel and the paged-prefill kernel: their float32 path (bf16
+// runs the tensor-core core of flash_wgmma.cuh).
 //
 // One block of 256 threads owns 64 query rows of one (batch, head) and
 // walks the 64-key tiles that any of its rows can see, keeping the running

@@ -45,10 +45,25 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(B, Hq, Sq, Dv).to(q.dtype)
 
 
+def require_bf16_core(name: str, dims, *tensors):
+    """What the bf16 tensor-core core takes (``csrc/flash_wgmma.cuh``):
+    head dims that are multiples of 8 up to 256 (TMA rows are whole
+    16-byte units) and 16-byte aligned tensors."""
+    for d in dims:
+        if d % 8 or not 0 < d <= 256:
+            raise ValueError(f"{name}: a bfloat16 head dim must be a "
+                             f"multiple of 8 up to 256, got {d}")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: bfloat16 tensors must be 16-byte "
+                             f"aligned, got data_ptr {t.data_ptr():#x}")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None, q_offset: int = 0):
     """The CUDA kernel: same contract as :func:`flash_attention_ref`, on
-    contiguous CUDA tensors of one dtype (float32 or bfloat16)."""
+    contiguous CUDA tensors of one dtype: float32 (the SIMT core) or
+    bfloat16 (the tensor-core core, see :func:`require_bf16_core`)."""
     name = "flash_attention"
     _build.require_cuda(name, q, k, v)
     B, Hq, Sq, Dk = q.shape
@@ -63,6 +78,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"{name}: head dims Dk {Dk}, Dv {Dv} exceed 256")
     if q_offset < 0 or window < 0:
         raise ValueError(f"{name}: q_offset and window must be >= 0")
+    if q.dtype == torch.bfloat16:
+        require_bf16_core(name, (Dk, Dv), q, k, v)
     if scale is None:
         scale = 1.0 / (Dk ** 0.5)
     out = torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=q.device)

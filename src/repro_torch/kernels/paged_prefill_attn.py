@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.flash_attn import flash_attention_ref
+from repro_torch.kernels.flash_attn import (flash_attention_ref,
+                                            require_bf16_core)
 from repro_torch.kernels.paged_decode_attn import gather_pages
 
 
@@ -33,10 +34,20 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, tables, k_suf, v_suf, *,
                                q_offset=prior + Ssuf - C)
 
 
+def require_bf16_pages(name: str, T: int):
+    """Raise ValueError unless a page of ``T`` tokens fits the bf16 core:
+    a multiple of 8 that divides its 64-key tile (8, 16, 32 or 64)."""
+    if T % 8 or 64 % T:
+        raise ValueError(f"{name}: a bfloat16 page of {T} tokens must be a "
+                         "multiple of 8 that divides 64")
+
+
 def paged_prefill_attention(q, k_pages, v_pages, tables, k_suf, v_suf, *,
                             scale: float | None = None):
     """The CUDA kernel: same contract as :func:`paged_prefill_attention_ref`,
-    on contiguous CUDA tensors of one dtype (int32 tables)."""
+    on contiguous CUDA tensors of one dtype (int32 tables).  bfloat16 takes
+    the tensor-core core (:func:`require_bf16_core`,
+    :func:`require_bf16_pages`)."""
     name = "paged_prefill_attention"
     _build.require_cuda(name, q, k_pages, v_pages, tables, k_suf, v_suf)
     B, Hq, C, Dk = q.shape
@@ -59,6 +70,9 @@ def paged_prefill_attention(q, k_pages, v_pages, tables, k_suf, v_suf, *,
         raise TypeError(f"{name}: tables must be int32")
     if Dk > 256 or Dv > 256:
         raise ValueError(f"{name}: head dims Dk {Dk}, Dv {Dv} exceed 256")
+    if q.dtype == torch.bfloat16:
+        require_bf16_core(name, (Dk, Dv), q, k_pages, v_pages, k_suf, v_suf)
+        require_bf16_pages(name, T)
     if scale is None:
         scale = 1.0 / (Dk ** 0.5)
     out = torch.empty((B, Hq, C, Dv), dtype=q.dtype, device=q.device)

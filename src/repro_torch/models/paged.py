@@ -54,6 +54,13 @@ def _is_seq(m) -> bool:
     return isinstance(m, AttentionSpec)
 
 
+def has_paged_prefill(cfg: ModelConfig) -> bool:
+    """Whether a prefix-hit suffix prefill of ``cfg`` runs the paged-prefill
+    kernel: any GQA / MHA block (MLA gathers its latent pages instead)."""
+    return any(isinstance(b.mixer, AttentionSpec) and b.mixer.kind != "mla"
+               for g in cfg.groups for b in g.blocks)
+
+
 def paged_layout(cfg: ModelConfig, capacity: int, page_tokens: int,
                  num_pages: int) -> PagedLayout:
     """Validate the arch for paged decode and derive the table geometry."""

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.blockpool import PREFIX, BlockPool
+from repro_torch.kernels.paged_prefill_attn import require_bf16_pages
 from repro_torch.models import Model, prepare_decode_caches
 from repro_torch.models import paged as paged_mod
 from repro_torch.models.tree import tree_map
@@ -276,6 +277,10 @@ class DecodeEngine:
             if pool.block_tokens != page_tokens:
                 raise ValueError(f"pool block_tokens {pool.block_tokens} != "
                                  f"page_tokens {page_tokens}")
+            if (self.device.type == "cuda" and model.cfg.dtype == "bfloat16"
+                    and paged_mod.has_paged_prefill(model.cfg)):
+                # refused here, not at the first prefix-hit suffix prefill
+                require_bf16_pages("DecodeEngine", page_tokens)
             self.pool = pool
             lay = paged_mod.paged_layout(model.cfg, capacity, page_tokens,
                                          pool.num_blocks)

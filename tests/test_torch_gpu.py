@@ -61,6 +61,13 @@ def _randn(gen, shape, dtype, dev, scale=1.0):
     (1, 4, 4, 77, 300, 192, 128, 223, 0),
     (1, 32, 32, 300, 300, 64, 64, 0, 0),      # zamba2's shared MHA block
     (1, 32, 32, 128, 384, 64, 64, 256, 0),    # its chunk after 256 tokens
+    (1, 64, 64, 2048, 2048, 192, 128, 0, 0),  # the full MLA prefill
+    (1, 4, 2, 2047, 2047, 192, 128, 0, 0),    # Sq not a multiple of 128
+    (1, 4, 2, 300, 337, 128, 128, 37, 0),     # first tile across the diagonal
+    (2, 4, 2, 300, 300, 192, 128, 0, 48),     # window 48, the Dk 192 instance
+    (1, 4, 4, 260, 260, 128, 128, 0, 48),     # window 48, the Dk 128 instance
+    (1, 4, 2, 300, 300, 80, 80, 0, 0),        # Dk, Dv 80: TMA zero-pads
+    (2, 2, 1, 150, 170, 48, 48, 20, 0),       # Dk, Dv 48
 ])
 def test_flash_matches_plain(cuda, dtype, B, Hq, Hkv, Sq, Sk, Dk, Dv,
                              q_offset, window):
@@ -354,6 +361,8 @@ def test_paged_decode_matches_plain(cuda, dtype, B, Hq, Hkv, T, N, Dk, Dv,
     (1, 4, 1, 64, 16, 5, 150, 64),       # chunk past the suffix's start
     (1, 32, 8, 128, 16, 8, 256, 128),    # GQA shape
     (1, 32, 32, 128, 16, 8, 200, 64),    # zamba2 MHA, head dim 64
+    (1, 8, 2, 100, 16, 3, 150, 128),     # N * T = 48: a tile across both
+    (2, 8, 8, 130, 8, 9, 130, 80),       # pages of 8, head dim 80
 ])
 def test_paged_prefill_matches_plain(cuda, dtype, B, Hq, Hkv, C, T, N, Ssuf,
                                      D):
@@ -370,6 +379,95 @@ def test_paged_prefill_matches_plain(cuda, dtype, B, Hq, Hkv, C, T, N, Ssuf,
     atol, rtol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+
+
+def test_paged_prefill_reads_only_named_pages(cuda):
+    """bf16 over a pool of 64 pages of which the tables name 10: NaN in
+    every other page, and the output finite and equal to the plain
+    version's."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    bf = torch.bfloat16
+    Hkv, P, T, D, B, N = 2, 64, 16, 128, 2, 5
+    kp = torch.full((Hkv, P, T, D), float("nan"), dtype=bf, device=cuda)
+    vp = kp.clone()
+    tables = torch.tensor([[40, 3, 17, 62, 9], [8, 33, 51, 0, 27]],
+                          dtype=torch.int32, device=cuda)
+    named = tables.flatten().long()
+    kp[:, named] = _randn(g, (Hkv, B * N, T, D), bf, cuda)
+    vp[:, named] = _randn(g, (Hkv, B * N, T, D), bf, cuda)
+    q = _randn(g, (B, 8, 96, D), bf, cuda)
+    ks = _randn(g, (B, Hkv, 120, D), bf, cuda)
+    vs = _randn(g, (B, Hkv, 120, D), bf, cuda)
+    got = paged_prefill_attention(q, kp, vp, tables, ks, vs)
+    torch.cuda.synchronize()
+    want = paged_prefill_attention_ref(q, kp, vp, tables, ks, vs)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
+                               rtol=2e-2)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 2 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("op", ["flash", "paged_prefill"])
+@pytest.mark.parametrize("fault", ["head_dim_36", "misaligned_q",
+                                   "misaligned_k"])
+def test_bf16_core_refuses_what_it_cannot_take(cuda, op, fault):
+    """A bf16 head dim that is not a multiple of 8, or a tensor not on a
+    16-byte boundary, raises ValueError before any launch."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    bf = torch.bfloat16
+    D = 36 if fault == "head_dim_36" else 64
+    q = _randn(g, (1, 4, 32, D), bf, cuda)
+    k = _randn(g, (1, 2, 48, D), bf, cuda)
+    kp = _randn(g, (2, 4, 16, D), bf, cuda)
+    tables = torch.tensor([[2, 0]], dtype=torch.int32, device=cuda)
+    if fault == "misaligned_q":
+        q = _misaligned(q)
+    if fault == "misaligned_k":
+        k, kp = _misaligned(k), _misaligned(kp)
+    build.reset_launches()
+    with pytest.raises(ValueError):
+        if op == "flash":
+            flash_attention(q, k, k)
+        else:
+            paged_prefill_attention(q, kp, kp, tables, k, k)
+    assert not build.LAUNCHES
+
+
+@pytest.mark.parametrize("page_tokens,ok", [(16, True), (12, False)])
+def test_bf16_decode_engine_refuses_pages_the_core_cannot_take(
+        cuda, page_tokens, ok):
+    """A bf16 paged decode engine on the card whose model runs the
+    paged-prefill kernel refuses, when it is built, a page size the bf16
+    core does not take, not at its first prefix-hit suffix prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import DecodeEngine
+
+    cfg = dataclasses.replace(get_smoke_config("mistral-nemo-12b"),
+                              dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+
+    def build_engine():
+        return DecodeEngine(Model(cfg), params, 2, 48, paged=True,
+                            page_tokens=page_tokens)
+
+    if ok:
+        build_engine()
+    else:
+        with pytest.raises(ValueError):
+            build_engine()
 
 
 def test_paged_ops_route_cuda_tensors_to_kernels(cuda):

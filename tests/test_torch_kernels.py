@@ -23,11 +23,14 @@ from repro.kernels.decode_attn import decode_attention as jax_decode_kernel
 from repro.kernels.delta import delta_chunked_fused as jax_delta_kernel
 from repro.kernels.flash_attn import flash_attention as jax_flash_kernel
 from repro.kernels.quantize import quantize_int8_fused as jax_quant_kernel
+from repro_torch.configs import get_config
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.decode_attn import decode_attention
 from repro_torch.kernels.delta import CHUNK, delta_chunked_fused
-from repro_torch.kernels.flash_attn import flash_attention
+from repro_torch.kernels.flash_attn import flash_attention, require_bf16_core
+from repro_torch.kernels.paged_prefill_attn import require_bf16_pages
 from repro_torch.kernels.quantize import quantize_int8_fused
+from repro_torch.models.paged import has_paged_prefill
 
 torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -164,6 +167,49 @@ def test_cpu_tensors_take_the_plain_versions():
         delta_chunked_fused(x, x, x, torch.zeros(1, 2, 8),
                             torch.ones(1, 2, 8), lens,
                             torch.zeros(1, 2, 16, 16))
+
+
+@pytest.mark.parametrize("dims,offset,ok", [
+    ((192, 128), 0, True),         # the MLA prefill
+    ((16, 256), 0, True),          # the narrowest and widest it takes
+    ((36, 64), 0, False),          # not a multiple of 8: TMA rows
+    ((64, 264), 0, False),         # wider than 256
+    ((64, 64), 1, False),          # 2 bytes past a 16-byte boundary
+])
+def test_bf16_core_shape_rules(dims, offset, ok):
+    """What the bf16 tensor-core core refuses, checked before any launch
+    (the check reads shapes and addresses only, so it runs on the CPU)."""
+    buf = torch.zeros(72, dtype=torch.bfloat16)
+    t = buf[offset:offset + 64]
+    assert buf.data_ptr() % 16 == 0
+    if ok:
+        require_bf16_core("core", dims, t)
+    else:
+        with pytest.raises(ValueError):
+            require_bf16_core("core", dims, t)
+
+
+@pytest.mark.parametrize("T,ok", [(8, True), (16, True), (32, True),
+                                  (64, True), (4, False), (12, False),
+                                  (128, False)])
+def test_bf16_page_rule(T, ok):
+    """Pages the bf16 paged-prefill core takes: a multiple of 8 tokens
+    that divides its 64-key tile."""
+    if ok:
+        require_bf16_pages("core", T)
+    else:
+        with pytest.raises(ValueError):
+            require_bf16_pages("core", T)
+
+
+@pytest.mark.parametrize("arch,paged_prefill", [
+    ("mistral-nemo-12b", True), ("zamba2-1.2b", True),
+    ("kimi-linear-1t", False)])
+def test_which_archs_run_paged_prefill(arch, paged_prefill):
+    """GQA and MHA blocks run the paged-prefill kernel on a prefix hit (so
+    a bf16 CUDA decode engine holds its page size to the core's rule); MLA
+    gathers its latent pages."""
+    assert has_paged_prefill(get_config(arch)) is paged_prefill
 
 
 def _port_sources():
