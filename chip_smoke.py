@@ -15,7 +15,10 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      (flash and paged prefill also give their achieved TFLOP/s and share of
      the bound, and are checked also at mistral-nemo's dense GQA chunks
      and zamba2's paged MHA suffix, so at each bf16 core instance a main
-     path runs);
+     path runs; the dense and paged decode at the three group sizes the
+     main paths run, MLA, GQA and MHA, and the paged one also at zamba2's
+     decode block, 8 rows of 4000 tokens), after printing the ptxas
+     registers and spills of the bf16 decode core's instances;
      then each differentiable op (attention, gla and delta, with and
      without lengths) at the training paths' shapes and types: its kernel
      forward against the plain version's outputs, and its gradients
@@ -51,7 +54,7 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      concatenation against a decode step; and profile one paged decode
      block of mistral-nemo-12b and of zamba2-1.2b, and one 4096-token
      prefill of each (``torch.profiler``: device busy time, the largest
-     kernels and the flash kernels' share);
+     kernels and the flash and decode kernels' shares);
   6. the training path on ``zamba2-1.2b`` at full width and depth: four
      AdamW steps of 2 x 2048 tokens in two microbatches with remat
      through ``make_train_step`` (the Mamba2 mixers on the unmasked GLA
@@ -135,6 +138,102 @@ def _bound(nbytes: float, flops: float, flop_s: float):
 
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+# the decode kernels' check shapes (rows 2 and 8): lengths of the 8 rows,
+# and the group sizes the main paths run (tag, Hq, Hkv, Dk, Dv, scale)
+CHECK_LENGTHS = (16384, 12001, 9000, 5601, 3800, 1501, 701, 101)
+DECODE_GROUPS = (("MLA", 64, 1, 536, 472, 192 ** -0.5),
+                 ("GQA", 32, 8, 128, 128, 128 ** -0.5),
+                 ("MHA", 32, 32, 64, 64, 64 ** -0.5))
+
+
+def _decode_case(torch, close, atol_needed, name, run, plain, q, k, v, lens,
+                 scale, extra, tables=None):
+    """One decode shape: the kernel against its plain version, its time,
+    the plain version's, SDPA's over the same (or, paged, the gathered)
+    cache with the G query heads of a cache head as G query rows, and the
+    bound from the live bytes (each live key's K and V rows once, q, the
+    output, lengths and ``extra``) and FLOPs."""
+    import torch.nn.functional as F
+
+    o = run()
+    torch.cuda.synchronize()
+    o_ref = plain()
+    e = close(name, o, o_ref, *TOL_BF16)
+    B, Hq, Dk = q.shape
+    Hkv, Dv = k.shape[1], v.shape[-1]
+    if tables is not None:
+        from repro_torch.kernels.paged_decode_attn import gather_pages
+        Hkv = k.shape[0]
+        k, v = gather_pages(k, tables), gather_pages(v, tables)
+    S = k.shape[2]
+    keys = int(lens.sum())
+    qg = q.reshape(B, Hkv, Hq // Hkv, Dk)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < lens[:, None])[:, None, None]
+    bnd = _bound(_nbytes(q, o, lens, *extra) + keys * Hkv * (Dk + Dv) * 2,
+                 2 * Hq * keys * (Dk + Dv), BF16_FLOP_S)
+    entry = dict(
+        max_abs_err=e, atol_needed=atol_needed(o, o_ref),
+        ms=_ms(run, 20), plain_ms=_ms(plain, 3),
+        bound_ms=bnd[0], bound_by=bnd[1],
+        library_ms=_ms(lambda: F.scaled_dot_product_attention(
+            qg, k, v, attn_mask=mask, scale=scale), 10))
+    entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+    return entry
+
+
+def _decode_entry(source, replaces, shapes):
+    """A decode kernel's line: the MLA shape's numbers (the table's row),
+    every shape under ``shapes``."""
+    mla = shapes["MLA"]
+    return dict(source=source, replaces=replaces,
+                max_abs_err=max(c["max_abs_err"] for c in shapes.values()),
+                atol_needed=max(c["atol_needed"] for c in shapes.values()),
+                **{key: mla[key] for key in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms",
+                                             "shape")},
+                shapes=shapes)
+
+
+def ptxas_report(log_path, needle: str):
+    """Registers, stack and spills of each kernel in the ptxas report the
+    build keeps beside the library (``-Xptxas -v``), for the entry
+    functions whose (demangled) name contains ``needle``."""
+    import re
+    import shutil
+    entries, name = [], None
+    for line in Path(log_path).read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            entries.append({"mangled": name})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            entries[-1].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entries[-1]["registers"] = int(m.group(1))
+    if shutil.which("c++filt") and entries:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            e["mangled"] for e in entries), capture_output=True, text=True,
+            check=True).stdout.splitlines()
+        for e, n in zip(entries, names):
+            e["name"] = n
+    out = []
+    for e in entries:
+        n = e.pop("name", e["mangled"])
+        e.pop("mangled")
+        if needle in n:
+            out.append({"name": n, **e})
+    return out
 
 
 def check_kernels(torch, dev):
@@ -226,34 +325,34 @@ def check_kernels(torch, dev):
               "(1,32,4096,128) over k, v (1,8,4096|8192,128), q_offset 0 "
               "and 4096")
 
-    # decode: absorbed MLA, Hq = 64 over Hkv = 1, Dk = 536, Dv = 472
-    B, S, Dk, Dv = 8, 16384, 536, 472
-    qd = randn(B, 64, Dk)
-    kd, vd = randn(B, 1, S, Dk), randn(B, 1, S, Dv)
-    lens = torch.tensor([16384, 12001, 9000, 5601, 3800, 1501, 701, 101],
-                        dtype=torch.int32, device=dev)
-    scale = 192 ** -0.5
-    od = decode_attention(qd, kd, vd, lens, scale=scale)
-    torch.cuda.synchronize()
-    od_ref = decode_attention_ref(qd, kd, vd, lens, scale=scale)
-    e = close("decode_attention", od, od_ref, *TOL_BF16)
-    keys = int(lens.sum())
-    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None]
-    bnd = _bound(_nbytes(qd, od, lens) + keys * (Dk + Dv) * 2,
-                 2 * 64 * keys * (Dk + Dv), BF16_FLOP_S)
-    out["decode_attention"] = dict(
-        source="src/repro_torch/csrc/decode_attn.cu",
-        replaces="src/repro/kernels/decode_attn.py:94",
-        max_abs_err=e, atol_needed=atol_needed(od, od_ref),
-        ms=_ms(lambda: decode_attention(qd, kd, vd, lens, scale=scale), 20),
-        plain_ms=_ms(lambda: decode_attention_ref(qd, kd, vd, lens,
-                                                  scale=scale), 3),
-        bound_ms=bnd[0], bound_by=bnd[1],
-        # one cache head: the 64 query heads are 64 query rows of it
-        library_ms=_ms(lambda: F.scaled_dot_product_attention(
-            qd[:, None], kd, vd, attn_mask=mask, scale=scale), 10),
-        shape="q (8,64,536) k (8,1,16384,536) v (8,1,16384,472) bf16, "
-              "lengths 16384..101")
+    # decode (row 2) at the three group sizes the main paths run: absorbed
+    # MLA (Hq 64 over Hkv 1, Dk 536, Dv 472: the table's row), GQA (32 over
+    # 8 heads of 128) and zamba2's MHA (32 heads of 64), the last two read
+    # in place through the model's (B, S, Hkv, D) buffers as gqa_decode
+    # passes them
+    B, S = 8, 16384
+    lens = torch.tensor(CHECK_LENGTHS, dtype=torch.int32, device=dev)
+    shapes = {}
+    for tag, Hq, Hkv, Dk, Dv, scale in DECODE_GROUPS:
+        qd = randn(B, Hq, Dk)
+        if Hkv == 1:
+            kd, vd = randn(B, 1, S, Dk), randn(B, 1, S, Dv)
+        else:
+            kd = randn(B, S, Hkv, Dk).transpose(1, 2)
+            vd = randn(B, S, Hkv, Dv).transpose(1, 2)
+        shapes[tag] = _decode_case(
+            torch, close, atol_needed, f"decode_attention ({tag})",
+            lambda: decode_attention(qd, kd, vd, lens, scale=scale),
+            lambda: decode_attention_ref(qd, kd, vd, lens, scale=scale),
+            qd, kd, vd, lens, scale, extra=())
+        shapes[tag]["shape"] = (
+            f"q ({B},{Hq},{Dk}) k ({B},{Hkv},{S},{Dk}) v ({B},{Hkv},{S},"
+            f"{Dv}) bf16{'' if Hkv == 1 else ' (transposed (B,S,Hkv,D) buffers)'}"
+            f", lengths 16384..101")
+        del qd, kd, vd
+    out["decode_attention"] = _decode_entry(
+        "src/repro_torch/csrc/decode_attn.cu",
+        "src/repro/kernels/decode_attn.py:94", shapes)
 
     # delta: KDA prefill, H = 56, dk = dv = 128, ragged lengths
     B, H, S, d = 2, 56, 4096, 128
@@ -577,55 +676,38 @@ def check_paged_kernels(torch, dev, g, randn, close, atol_needed):
 
     out = {}
     T, P = 16, 8193
-    lens_l = [16384, 12001, 9000, 5601, 3800, 1501, 701, 101]
+    lens_l = list(CHECK_LENGTHS)
     B, N = len(lens_l), 16384 // T
     lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
-    keys = sum(lens_l)
-    entries = []
-    for tag, Hq, Hkv, Dk, Dv, scale in (
-            ("MLA", 64, 1, 536, 472, 192 ** -0.5),
-            ("GQA", 32, 8, 128, 128, 128 ** -0.5)):
+    shapes = {}
+    for tag, Hq, Hkv, Dk, Dv, scale in DECODE_GROUPS:
         kp, vp = randn(Hkv, P, T, Dk), randn(Hkv, P, T, Dv)
         tables = _paged_tables(torch, dev, g, lens_l, T, N, P)
         q = randn(B, Hq, Dk)
-        o = paged_decode_attention(q, kp, vp, tables, lens, scale=scale)
-        torch.cuda.synchronize()
-        o_ref = paged_decode_attention_ref(q, kp, vp, tables, lens,
-                                           scale=scale)
-        e = close(f"paged_decode_attention ({tag})", o, o_ref, *TOL_BF16)
-        # SDPA yardstick over the gathered dense cache: the G query heads
-        # of a cache head are G query rows of it
-        kd, vd = gather_pages(kp, tables), gather_pages(vp, tables)
-        qg = q.reshape(B, Hkv, Hq // Hkv, Dk)
-        mask = (torch.arange(N * T, device=dev)[None, :]
-                < lens[:, None])[:, None, None]
-        bnd = _bound(_nbytes(q, o, lens, tables) + keys * Hkv * (Dk + Dv) * 2,
-                     2 * Hq * keys * (Dk + Dv), BF16_FLOP_S)
-        entries.append(dict(
-            tag=tag, max_abs_err=e, atol_needed=atol_needed(o, o_ref),
-            ms=_ms(lambda: paged_decode_attention(q, kp, vp, tables, lens,
-                                                  scale=scale), 20),
-            plain_ms=_ms(lambda: paged_decode_attention_ref(
-                q, kp, vp, tables, lens, scale=scale), 3),
-            bound_ms=bnd[0], bound_by=bnd[1],
-            library_ms=_ms(lambda: F.scaled_dot_product_attention(
-                qg, kd, vd, attn_mask=mask, scale=scale), 10),
-            shape=f"{tag}: q ({B},{Hq},{Dk}), pools ({Hkv},{P},{T},{Dk}) / "
-                  f"({Hkv},{P},{T},{Dv}) bf16, tables ({B},{N}) permuted, "
-                  f"lengths 16384..101"))
-        del kp, vp, kd, vd
-    # the MLA shape is the one in the table; the GQA numbers ride along
-    mla, gqa = entries
-    out["paged_decode_attention"] = dict(
-        source="src/repro_torch/csrc/paged_decode_attn.cu",
-        replaces="src/repro/kernels/paged_decode_attn.py:112",
-        max_abs_err=max(mla["max_abs_err"], gqa["max_abs_err"]),
-        atol_needed=max(mla["atol_needed"], gqa["atol_needed"]),
-        ms=mla["ms"], plain_ms=mla["plain_ms"], bound_ms=mla["bound_ms"],
-        bound_by=mla["bound_by"], library_ms=mla["library_ms"],
-        shape=mla["shape"], gqa={k: gqa[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err", "atol_needed", "shape")})
+        runs = [(tag, lens, lens_l)]
+        if tag == "MHA":
+            # zamba2's decode block: 8 slots at 4000 tokens
+            l4 = [4000] * B
+            runs.append(("MHA_zamba2_8x4000",
+                         torch.tensor(l4, dtype=torch.int32, device=dev), l4))
+        for name, ln, ll in runs:
+            tb = tables if ll is lens_l else _paged_tables(
+                torch, dev, g, ll, T, N, P)
+            shapes[name] = _decode_case(
+                torch, close, atol_needed, f"paged_decode_attention ({name})",
+                lambda: paged_decode_attention(q, kp, vp, tb, ln,
+                                               scale=scale),
+                lambda: paged_decode_attention_ref(q, kp, vp, tb, ln,
+                                                   scale=scale),
+                q, kp, vp, ln, scale, extra=(tb,), tables=tb)
+            shapes[name]["shape"] = (
+                f"q ({B},{Hq},{Dk}), pools ({Hkv},{P},{T},{Dk}) / ({Hkv},{P},"
+                f"{T},{Dv}) bf16, tables ({B},{N}) permuted, lengths "
+                + ("16384..101" if ll is lens_l else f"{ll[0]} x {B}"))
+        del kp, vp
+    out["paged_decode_attention"] = _decode_entry(
+        "src/repro_torch/csrc/paged_decode_attn.cu",
+        "src/repro/kernels/paged_decode_attn.py:112", shapes)
 
     # paged prefill: a 2048-query suffix chunk over 512 prior pages
     Hq, Hkv, D, C, Np = 32, 8, 128, 2048, 512
@@ -950,8 +1032,9 @@ def _profiled(torch, fn):
     """Host wall of one ``fn()`` after a warm-up, then one more under
     ``torch.profiler``: the device's busy time (the sum of its kernels),
     its share of the wall, the five kernels that take most of it, and the
-    share of the busy time in the flash kernels (both cores of rows 1 and
-    9)."""
+    shares of the busy time in the flash kernels (both cores of rows 1 and
+    9) and in the decode kernels (both cores of rows 2 and 8, the bf16
+    core's combine included)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()                               # warm-up
@@ -973,11 +1056,16 @@ def _profiled(torch, fn):
     top = sorted(kernels, key=lambda k: -k[1])[:5]
     flash = [(ms, c) for n, ms, c in kernels
              if "flash_wgmma" in n or "flash_core" in n]
+    decode = [(ms, c) for n, ms, c in kernels
+              if "decode_hopper" in n or "decode_core" in n]
     return {"wall_ms": wall_ms, "device_busy_ms_profiled": busy,
             "device_busy_share": busy / wall_ms,
             "flash_ms": sum(ms for ms, _ in flash),
             "flash_launches": sum(c for _, c in flash),
             "flash_share_of_busy": sum(ms for ms, _ in flash) / busy,
+            "decode_ms": sum(ms for ms, _ in decode),
+            "decode_launches": sum(c for _, c in decode),
+            "decode_share_of_busy": sum(ms for ms, _ in decode) / busy,
             "top_kernels": [{"name": n[:80], "ms": ms, "launches": c}
                             for n, ms, c in top]}
 
@@ -1285,7 +1373,7 @@ def hybrid_train(torch, dev):
 # what some kernel entries add to the keys every entry has: achieved rate,
 # share of the bound and the error at each checked shape (rows 1 and 9),
 # the GQA shape's numbers (row 8)
-_EXTRA_KEYS = ("tflops", "bound_share", "checked", "gqa")
+_EXTRA_KEYS = ("tflops", "bound_share", "checked", "shapes")
 
 
 def gc_cuda(torch):
@@ -1344,6 +1432,12 @@ def main():
     lib = build.build()
     build.library()
     print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    # registers and spills of the bf16 decode core's instances
+    decode_ptxas = ptxas_report(str(lib) + ".log", "decode_hopper::")
+    for e in decode_ptxas:
+        print(f"ptxas {e['name'].split('>(')[0]}>: {e.get('registers')} "
+              f"registers, {e.get('spill_stores')} / {e.get('spill_loads')} "
+              f"bytes spilled (stores / loads)", flush=True)
 
     kernels = check_kernels(torch, dev)
     for name, k in kernels.items():
@@ -1448,6 +1542,7 @@ def main():
           f"{summary['mean_step_s_after_first']:.3f} s a step, launches "
           f"{summary['launches']}", flush=True)
     paths["gradient_checks"] = grad_checks
+    paths["decode_ptxas"] = decode_ptxas
 
     entries = [dict(name=name, route="cuda", source=k["source"],
                     replaces=k["replaces"], launches=launches.get(name, 0),

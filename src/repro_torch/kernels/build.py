@@ -36,13 +36,15 @@ LAUNCHES: collections.Counter = collections.Counter()
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "prfaas_flash_attention": [_P] * 4 + [_I] * 10 + [_F, _I, _P],
-    "prfaas_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
+    "prfaas_decode_attention": [_P] * 7 + [_L] * 3 + [_I] * 8
+                               + [_F, _I, _I, _I, _P],
     "prfaas_delta_fused": [_P] * 9 + [_I] * 6 + [_P],
     "prfaas_gla_fused": [_P] * 8 + [_I] * 6 + [_P],
     "prfaas_delta_chunked": [_P] * 8 + [_I] * 6 + [_P],
     "prfaas_gla_chunked": [_P] * 7 + [_I] * 6 + [_P],
     "prfaas_quantize_int8": [_P, _P, _P, _P, _L, _I, _P],
-    "prfaas_paged_decode_attention": [_P] * 8 + [_I] * 10 + [_F, _I, _I, _P],
+    "prfaas_paged_decode_attention": [_P] * 8 + [_I] * 10
+                                     + [_F, _I, _I, _I, _P],
     "prfaas_paged_prefill_attention": [_P] * 7 + [_I] * 10 + [_F, _I, _P],
 }
 
@@ -139,14 +141,14 @@ def dtype_code(t) -> int:
     return codes[t.dtype]
 
 
-def require_cuda(name: str, *tensors):
-    """Validate what every kernel wrapper needs: CUDA, contiguous, one
-    device."""
+def require_cuda(name: str, *tensors, contiguous: bool = True):
+    """Validate what every kernel wrapper needs: CUDA, one device and,
+    unless the kernel takes strides, contiguous."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: kernel takes CUDA tensors, got {t.device}")
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")

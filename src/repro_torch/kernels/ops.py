@@ -170,12 +170,17 @@ def gla(q, k, v, log_a, initial_state=None, *, lengths=None,
 def decode_attention(q, k_cache, v_cache, lengths, *, window=0, scale=None,
                      use_kernel=True):
     """One-query attention over a dense cache. q: (B,Hq,Dk); caches
-    (B,Hkv,S,Dk/Dv); lengths (B,) keys per row (context + 1)."""
+    (B,Hkv,S,Dk/Dv); lengths (B,) keys per row (context + 1).  The kernel
+    reads the caches in place where their key rows allow it
+    (:func:`decode_attn.cache_rows`: GQA's (B, S, Hkv, D) buffers through a
+    transpose); other views are copied first."""
     if _plain(use_kernel, q):
         return _decode.decode_attention_ref(q, k_cache, v_cache, lengths,
                                             window=window, scale=scale)
+    if _decode.cache_rows(k_cache, v_cache) is None:
+        k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
     return _decode.decode_attention(
-        q.contiguous(), k_cache.contiguous(), v_cache.contiguous(),
+        q.contiguous(), k_cache, v_cache,
         lengths.to(device=q.device, dtype=torch.int32).contiguous(),
         window=window, scale=scale)
 

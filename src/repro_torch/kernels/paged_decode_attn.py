@@ -11,7 +11,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.decode_attn import decode_attention_ref, split_plan
+from repro_torch.kernels.decode_attn import (decode_attention_ref,
+                                             require_bf16_decode, sm_count,
+                                             split_plan)
 
 
 def gather_pages(pages, tables):
@@ -47,7 +49,8 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, *,
                            window: int = 0, scale: float | None = None):
     """The CUDA kernel: same contract as :func:`paged_decode_attention_ref`,
     on contiguous CUDA tensors (q and pools of one dtype, int32 tables and
-    lengths)."""
+    lengths).  bfloat16 takes the Hopper core (:func:`require_bf16_decode`,
+    any page size)."""
     name = "paged_decode_attention"
     _build.require_cuda(name, q, k_pages, v_pages, tables, lengths)
     B, Hq, Dk = q.shape
@@ -67,19 +70,23 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, *,
         raise TypeError(f"{name}: tables and lengths must be int32")
     if Dk > 1024 or Dv > 512:
         raise ValueError(f"{name}: head dims Dk {Dk}, Dv {Dv} too large")
+    if q.dtype == torch.bfloat16:
+        require_bf16_decode(name, Dk, Dv, q, k_pages, v_pages)
     if scale is None:
         scale = 1.0 / (Dk ** 0.5)
     out = torch.empty((B, Hq, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    G, splits, part_acc, part_ml = split_plan(q, Hkv, Dv, N * T)
+    plan = split_plan(B, Hq, Hkv, Dk, Dv, N * T, q.dtype, sm_count(q.device),
+                      int(window))
+    part_acc, part_ml = plan.scratch(B, Hq, Dv, q.device)
     lib = _build.library()
     err = lib.prfaas_paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(), B, Hq, Hkv, P, T, N, Dk, Dv,
-        G, int(window), float(scale), splits, _build.dtype_code(q),
-        _build.stream_ptr(q))
+        plan.heads, int(window), float(scale), plan.workers, plan.tile,
+        _build.dtype_code(q), _build.stream_ptr(q))
     _build.check(name, err)
     _build.LAUNCHES[name] += 1
     return out

@@ -355,6 +355,124 @@ def test_paged_decode_matches_plain(cuda, dtype, B, Hq, Hkv, T, N, Dk, Dv,
                                rtol=rtol)
 
 
+# the bf16 decode core's group sizes on the main paths: absorbed MLA (the
+# tensor cores), mistral-nemo's GQA and zamba2's MHA (the bf16 stream)
+_BF16_DECODE_GROUPS = [(64, 1, 536, 472), (32, 8, 128, 128), (32, 32, 64, 64)]
+# ragged lengths: empty rows, one key, partly live last tiles, rows long
+# enough that the workers' runs cross row boundaries
+_BF16_DECODE_LENGTHS = (0, 1, 37, 4096, 1029, 0, 3000, 2049)
+
+
+@pytest.mark.parametrize("Hq,Hkv,Dk,Dv", _BF16_DECODE_GROUPS)
+@pytest.mark.parametrize("window", [0, 45])
+@pytest.mark.parametrize("layout", ["dense", "paged8", "paged16", "paged12"])
+def test_decode_bf16_core_matches_plain(cuda, Hq, Hkv, Dk, Dv, window,
+                                        layout):
+    """The bf16 decode core (rows 2 and 8) against the plain versions at G
+    = 64, 4 and 1, on ragged lengths whose runs cross rows, with NaN in
+    every key row no row may read: past each length in the dense cache
+    (which GQA and MHA read in place through the model's transposed
+    (B, S, Hkv, D) buffers), and on sink, dead and past-length rows of the
+    page pools (pages of 8, 16 and 12 tokens)."""
+    from repro_torch.kernels.decode_attn import sm_count, split_plan, tile_runs
+
+    g = torch.Generator(device=cuda).manual_seed(15)
+    bf = torch.bfloat16
+    lengths = _BF16_DECODE_LENGTHS
+    B, S = len(lengths), 4096
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = _randn(g, (B, Hq, Dk), bf, cuda)
+    if layout == "dense":
+        past = (torch.arange(S, device=cuda)[None, :]
+                >= lens[:, None])[:, :, None, None]
+        if Hq // Hkv >= 16:    # the MLA latent: (B, 1, S, D), contiguous
+            kbuf, vbuf = _randn(g, (B, S, 1, Dk), bf, cuda), \
+                _randn(g, (B, S, 1, Dv), bf, cuda)
+        else:
+            kbuf, vbuf = _randn(g, (B, S, Hkv, Dk), bf, cuda), \
+                _randn(g, (B, S, Hkv, Dv), bf, cuda)
+        k_fin = kbuf.transpose(1, 2).contiguous()
+        v_fin = torch.where(past, 0.0, vbuf).to(bf).transpose(1, 2)
+        kbuf.masked_fill_(past, float("nan"))
+        vbuf.masked_fill_(past, float("nan"))
+        k, v = kbuf.transpose(1, 2), vbuf.transpose(1, 2)
+        got = decode_attention(q, k, v, lens, window=window)
+        torch.cuda.synchronize()
+        want = decode_attention_ref(q, k_fin, v_fin.contiguous(), lens,
+                                    window=window)
+    else:
+        T = int(layout[5:])
+        S = -(-S // T) * T
+        kp, vp, tables = _paged_pools(g, cuda, bf, B, Hkv, T, S // T, Dk, Dv,
+                                      lengths)
+        got = paged_decode_attention(q, kp, vp, tables, lens, window=window)
+        torch.cuda.synchronize()
+        want = paged_decode_attention_ref(q, kp, vp, tables, lens,
+                                          window=window)
+    plan = split_plan(B, Hq, Hkv, Dk, Dv, S, bf, sm_count(cuda), window)
+    assert plan.core == ("wgmma" if Hq // Hkv >= 16 else "stream")
+    runs = tile_runs(lengths, S, window, plan.tile, plan.workers)
+    if window == 0:
+        assert any(len(segs) > 1 for segs in runs), "no run crosses a row"
+    assert torch.isfinite(got.float()).all()
+    assert not got[lens == 0].any()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 8, 128), (32, 32, 64)])
+def test_decode_reads_the_transposed_cache_in_place(cuda, dtype, Hq, Hkv, D):
+    """gqa_decode's (B, S, Hkv, D) buffers through transpose(1, 2): both
+    cores read them where they lie and give exactly what they give on
+    contiguous copies (the same keys in the same order)."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    B, S = 3, 700
+    q = _randn(g, (B, Hq, D), dtype, cuda)
+    kbuf, vbuf = (_randn(g, (B, S, Hkv, D), dtype, cuda) for _ in range(2))
+    lens = torch.tensor([700, 1, 333], dtype=torch.int32, device=cuda)
+    k, v = kbuf.transpose(1, 2), vbuf.transpose(1, 2)
+    got = ops.decode_attention(q, k, v, lens)
+    want = ops.decode_attention(q, k.contiguous(), v.contiguous(), lens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), decode_attention_ref(q, k, v, lens).float(), atol=atol,
+        rtol=rtol)
+
+
+@pytest.mark.parametrize("op", ["dense", "paged"])
+@pytest.mark.parametrize("fault", ["head_dim_36", "value_dim_44",
+                                   "misaligned_q", "misaligned_k"])
+def test_bf16_decode_core_refuses_what_it_cannot_take(cuda, op, fault):
+    """A bf16 decode whose head dims are not multiples of 8, or whose
+    tensors are not on a 16-byte boundary, raises ValueError before any
+    launch: nothing falls back to the SIMT core or the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    bf = torch.bfloat16
+    Dk = 36 if fault == "head_dim_36" else 64
+    Dv = 44 if fault == "value_dim_44" else 64
+    q = _randn(g, (2, 8, Dk), bf, cuda)
+    k, v = _randn(g, (2, 2, 48, Dk), bf, cuda), _randn(g, (2, 2, 48, Dv), bf,
+                                                       cuda)
+    kp, vp = _randn(g, (2, 4, 16, Dk), bf, cuda), _randn(g, (2, 4, 16, Dv),
+                                                         bf, cuda)
+    tables = torch.tensor([[2, 0], [1, 3]], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([30, 17], dtype=torch.int32, device=cuda)
+    if fault == "misaligned_q":
+        q = _misaligned(q)
+    if fault == "misaligned_k":
+        k, kp = _misaligned(k), _misaligned(kp)
+    build.reset_launches()
+    with pytest.raises(ValueError):
+        if op == "dense":
+            decode_attention(q, k, v, lens)
+        else:
+            paged_decode_attention(q, kp, vp, tables, lens)
+    assert not build.LAUNCHES
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Hq,Hkv,C,T,N,Ssuf,D", [
     (2, 4, 2, 40, 16, 3, 40, 32),
