@@ -17,8 +17,11 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      and zamba2's paged MHA suffix, so at each bf16 core instance a main
      path runs; the dense and paged decode at the three group sizes the
      main paths run, MLA, GQA and MHA, and the paged one also at zamba2's
-     decode block, 8 rows of 4000 tokens), after printing the ptxas
-     registers and spills of the bf16 decode core's instances;
+     decode block, 8 rows of 4000 tokens; the delta rule, rows 3 and 5, at
+     its table shape and at the shapes the main paths run, kimi's prefill
+     chunk and the recipe's float32 microbatch), after printing the ptxas
+     registers and spills of the bf16 decode core's and the delta core's
+     instances;
      then each differentiable op (attention, gla and delta, with and
      without lengths) at the training paths' shapes and types: its kernel
      forward against the plain version's outputs, and its gradients
@@ -53,8 +56,9 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      logits' distance; time the MLA paged decode's whole-pool [ckv, kpe]
      concatenation against a decode step; and profile one paged decode
      block of mistral-nemo-12b and of zamba2-1.2b, and one 4096-token
-     prefill of each (``torch.profiler``: device busy time, the largest
-     kernels and the flash and decode kernels' shares);
+     prefill of kimi, mistral-nemo and zamba2 (``torch.profiler``: device
+     busy time, the largest kernels and the flash, decode and delta
+     kernels' shares);
   6. the training path on ``zamba2-1.2b`` at full width and depth: four
      AdamW steps of 2 x 2048 tokens in two microbatches with remat
      through ``make_train_step`` (the Mamba2 mixers on the unmasked GLA
@@ -197,6 +201,146 @@ def _decode_entry(source, replaces, shapes):
                 shapes=shapes)
 
 
+# rows 3 and 5 (the delta core): the shape each is timed at in the table,
+# and the shapes the main paths run it at (kimi's 4096-token prefill
+# chunk, masked; the KDA:MLA recipe's microbatch in float32, unmasked)
+DELTA_SHAPES = {
+    "row3_table": ("delta_chunked_fused", (2, 56, 4096, 128), "bf16",
+                   (4096, 2500)),
+    "row3_kimi_prefill": ("delta_chunked_fused", (1, 56, 4096, 128), "bf16",
+                          (4096,)),
+    "row5_table": ("delta_chunked", (2, 56, 4096, 128), "bf16", None),
+    "row5_recipe": ("delta_chunked", (4, 8, 1024, 64), "f32", None),
+}
+
+
+def delta_case(torch, dev, g, tag):
+    """One of DELTA_SHAPES: its inputs (unit q and k, decays and beta as
+    KDA gives them, a nonzero state), the kernel and its plain version as
+    callables over them, the rows below the lengths, and the bound: each
+    valid row's q, k, v, o, log_a and beta once, the state in and out and
+    the lengths, against the FLOPs of the chunk products at the inputs'
+    type (bf16 tensor cores, float32 SIMT)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import delta as kd
+
+    name, (B, H, S, d), dt, lens = DELTA_SHAPES[tag]
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    q = F.normalize(randn(B, H, S, d), dim=-1).to(dtype)
+    k = F.normalize(randn(B, H, S, d), dim=-1).to(dtype)
+    v = randn(B, H, S, d).to(dtype)
+    la = -0.1 * randn(B, H, S).abs()
+    beta = torch.rand((B, H, S), generator=g, device=dev) * 0.9 + 0.1
+    s0 = 0.1 * randn(B, H, d, d)
+    if lens is None:
+        lengths = None
+        valid = torch.ones((B, H, S), dtype=torch.bool, device=dev)
+
+        def run():
+            return kd.delta_chunked(q, k, v, la, beta, s0)
+
+        def plain():
+            return kd.delta_chunked_ref(q, k, v, la, beta, s0)
+    else:
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        valid = (torch.arange(S, device=dev)[None, :]
+                 < lengths[:, None])[:, None].expand(B, H, S)
+
+        def run():
+            return kd.delta_chunked_fused(q, k, v, la, beta, lengths, s0)
+
+        def plain():
+            la_m, k_m, b_m = kd.mask_padded(lengths, S, la, k, beta)
+            return kd.delta_chunked_ref(q, k_m, v, la_m, b_m, s0)
+    rows = int(valid.sum())
+    chunks = H * sum(-(-min(n, S) // 64) for n in (lens or (S,) * B))
+    per_chunk = 4 * 64 * 64 * d + 6 * 64 * d * d + 2 * 64 * 64 * d
+    # both dtypes run every product on the bf16 tensor cores (float32
+    # operands in bf16 parts), so the operations count at their rate
+    bnd = _bound(rows * (4 * d * q.element_size() + 2 * 4)
+                 + 2 * _nbytes(s0) + (0 if lengths is None
+                                      else _nbytes(lengths)),
+                 chunks * per_chunk, BF16_FLOP_S)
+    shape = (f"q,k,v ({B},{H},{S},{d}) {dt}, state ({B},{H},{d},{d}) f32, "
+             + ("no lengths" if lens is None
+                else "lengths " + ", ".join(map(str, lens))))
+    return dict(name=name, run=run, plain=plain, valid=valid, bound=bnd,
+                shape=shape, dtype=dtype)
+
+
+def time_delta_shapes(torch, dev):
+    """ms of rows 3 and 5 at each of DELTA_SHAPES, by CUDA events: only the
+    wrappers' public calls, so the same timing runs on a parent checkout's
+    kernels (the A/B loop in .claude/skills/verify/SKILL.md)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    out = {}
+    for tag in DELTA_SHAPES:
+        case = delta_case(torch, dev, g, tag)
+        out[tag] = _ms(case["run"], 10)
+        del case
+        torch.cuda.empty_cache()
+    return out
+
+
+def delta_entry(torch, dev, g, close, atol_needed, name, source, replaces):
+    """Row 3 or 5: the kernel against its plain version at each of its
+    DELTA_SHAPES (outputs at TOL_BF16 in bf16, TOL_STATE in float32, below
+    the lengths; the state at TOL_STATE), each shape's time, plain time,
+    bound and device time per kernel (the core's two phases); the table
+    shape's numbers are the entry's own."""
+    shapes = {}
+    for tag, spec in DELTA_SHAPES.items():
+        if spec[0] != name:
+            continue
+        case = delta_case(torch, dev, g, tag)
+        o, st = case["run"]()
+        torch.cuda.synchronize()
+        o2, st2 = case["plain"]()
+        vm = case["valid"]
+        otol = TOL_BF16 if case["dtype"] == torch.bfloat16 else TOL_STATE
+        e_o = close(f"{name} (o, {tag})", o[vm], o2[vm], *otol)
+        e_s = close(f"{name} (state, {tag})", st, st2, *TOL_STATE)
+        shapes[tag] = dict(
+            max_abs_err=e_o, state_max_abs_err=e_s,
+            atol_needed=atol_needed(o[vm], o2[vm], otol[1]),
+            ms=_ms(case["run"], 10), plain_ms=_ms(case["plain"], 2),
+            bound_ms=case["bound"][0], bound_by=case["bound"][1],
+            library_ms=None, shape=case["shape"])
+        shapes[tag]["bound_share"] = shapes[tag]["bound_ms"] / shapes[tag]["ms"]
+        shapes[tag]["phases_ms"] = _kernel_ms(torch, case["run"], 5)
+        del case, o, st, o2, st2
+        torch.cuda.empty_cache()
+    table = shapes[next(t for t in shapes if t.endswith("_table"))]
+    return dict(source=source, replaces=replaces,
+                max_abs_err=max(c["max_abs_err"] for c in shapes.values()),
+                atol_needed=max(c["atol_needed"] for c in shapes.values()),
+                **{key: table[key] for key in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms",
+                                               "shape")},
+                shapes=shapes)
+
+
+def _kernel_ms(torch, fn, reps: int):
+    """Device ms of each kernel ``fn()`` launches, a run's mean over
+    ``reps`` runs after a warm-up (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0]: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def ptxas_report(log_path, needle: str):
     """Registers, stack and spills of each kernel in the ptxas report the
     build keeps beside the library (``-Xptxas -v``), for the entry
@@ -243,8 +387,6 @@ def check_kernels(torch, dev):
 
     from repro_torch.kernels.decode_attn import (decode_attention,
                                                  decode_attention_ref)
-    from repro_torch.kernels.delta import (delta_chunked_fused,
-                                           delta_chunked_ref, mask_padded)
     from repro_torch.kernels.flash_attn import (flash_attention,
                                                 flash_attention_ref)
     from repro_torch.kernels.quantize import (quantize_int8_fused,
@@ -354,41 +496,12 @@ def check_kernels(torch, dev):
         "src/repro_torch/csrc/decode_attn.cu",
         "src/repro/kernels/decode_attn.py:94", shapes)
 
-    # delta: KDA prefill, H = 56, dk = dv = 128, ragged lengths
-    B, H, S, d = 2, 56, 4096, 128
-    qn = F.normalize(randn(B, H, S, d, dtype=torch.float32), dim=-1).to(bf)
-    kn = F.normalize(randn(B, H, S, d, dtype=torch.float32), dim=-1).to(bf)
-    vn = randn(B, H, S, d)
-    la = -0.1 * randn(B, H, S, dtype=torch.float32).abs()
-    beta = torch.rand((B, H, S), generator=g, device=dev) * 0.9 + 0.1
-    s0 = randn(B, H, d, d, dtype=torch.float32, scale=0.1)
-    dl = torch.tensor([4096, 2500], dtype=torch.int32, device=dev)
-    o, st = delta_chunked_fused(qn, kn, vn, la, beta, dl, s0)
-    torch.cuda.synchronize()
-
-    def plain_delta():
-        la_m, k_m, b_m = mask_padded(dl, S, la, kn, beta)
-        return delta_chunked_ref(qn, k_m, vn, la_m, b_m, s0)
-
-    o2, st2 = plain_delta()
-    valid = (torch.arange(S, device=dev)[None, :] < dl[:, None])[:, None]
-    valid = valid.expand(B, H, S)
-    e_o = close("delta_chunked_fused (o)", o[valid], o2[valid], *TOL_BF16)
-    close("delta_chunked_fused (state)", st, st2, *TOL_STATE)
-    rows = int(dl.sum()) * H
-    chunks = sum(-(-int(n) // 64) for n in dl.tolist()) * H
-    per_chunk = 4 * 64 * 64 * d + 6 * 64 * d * d + 2 * 64 * 64 * d
-    bnd = _bound(rows * (4 * d * 2 + 2 * 4) + _nbytes(s0, st, dl),
-                 chunks * per_chunk, BF16_FLOP_S)
-    out["delta_chunked_fused"] = dict(
-        source="src/repro_torch/csrc/delta.cu",
-        replaces="src/repro/kernels/delta.py:218",
-        max_abs_err=e_o, atol_needed=atol_needed(o[valid], o2[valid]),
-        ms=_ms(lambda: delta_chunked_fused(qn, kn, vn, la, beta, dl, s0), 5),
-        plain_ms=_ms(plain_delta, 2),
-        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
-        shape="q,k,v (2,56,4096,128) bf16, state (2,56,128,128) f32, "
-              "lengths 4096, 2500")
+    # delta, masked (row 3): KDA prefill, H = 56, dk = dv = 128, ragged
+    # lengths, and kimi's prefill chunk
+    out["delta_chunked_fused"] = delta_entry(
+        torch, dev, g, close, atol_needed, "delta_chunked_fused",
+        "src/repro_torch/csrc/delta.cu",
+        "src/repro/kernels/delta.py:218")
 
     # quantize: one wire leaf (4096, 472) float32
     x = randn(4096, 472, dtype=torch.float32, scale=3.0)
@@ -463,10 +576,8 @@ def check_unmasked_kernels(torch, dev, g, randn, close, atol_needed):
     its plain version with a nonzero initial state.  gla_chunked at
     zamba2's Mamba2 head (H = 32, dk = 64, dv = 128) and a 2048-token
     training row, delta_chunked at row 3's kimi KDA shape, so the masked
-    and unmasked delta kernels compare directly."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.delta import delta_chunked, delta_chunked_ref
+    and unmasked delta kernels compare directly, and at the KDA:MLA
+    recipe's float32 microbatch."""
     from repro_torch.kernels.gla import gla_chunked, gla_chunked_ref
 
     out = {}
@@ -496,33 +607,10 @@ def check_unmasked_kernels(torch, dev, g, randn, close, atol_needed):
               "(2,32,64,128) f32 nonzero, no lengths")
     del q, k, v, la, s0, o, o2
 
-    B, H, S, d = 2, 56, 4096, 128
-    qn = F.normalize(randn(B, H, S, d, dtype=torch.float32), dim=-1).to(
-        torch.bfloat16)
-    kn = F.normalize(randn(B, H, S, d, dtype=torch.float32), dim=-1).to(
-        torch.bfloat16)
-    vn = randn(B, H, S, d)
-    la = -0.1 * randn(B, H, S, dtype=torch.float32).abs()
-    beta = torch.rand((B, H, S), generator=g, device=dev) * 0.9 + 0.1
-    s0 = randn(B, H, d, d, dtype=torch.float32, scale=0.1)
-    o, st = delta_chunked(qn, kn, vn, la, beta, s0)
-    torch.cuda.synchronize()
-    o2, st2 = delta_chunked_ref(qn, kn, vn, la, beta, s0)
-    e_o = close("delta_chunked (o)", o, o2, *TOL_BF16)
-    close("delta_chunked (state)", st, st2, *TOL_STATE)
-    chunks = B * H * (S // 64)
-    per_chunk = 4 * 64 * 64 * d + 6 * 64 * d * d + 2 * 64 * 64 * d
-    bnd = _bound(B * H * S * (4 * d * 2 + 2 * 4) + _nbytes(s0, st),
-                 chunks * per_chunk, BF16_FLOP_S)
-    out["delta_chunked"] = dict(
-        source="src/repro_torch/csrc/delta.cu",
-        replaces="src/repro/kernels/delta.py:155",
-        max_abs_err=e_o, atol_needed=atol_needed(o, o2),
-        ms=_ms(lambda: delta_chunked(qn, kn, vn, la, beta, s0), 5),
-        plain_ms=_ms(lambda: delta_chunked_ref(qn, kn, vn, la, beta, s0), 2),
-        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
-        shape="q,k,v (2,56,4096,128) bf16, state (2,56,128,128) f32, no "
-              "lengths")
+    out["delta_chunked"] = delta_entry(
+        torch, dev, g, close, atol_needed, "delta_chunked",
+        "src/repro_torch/csrc/delta.cu",
+        "src/repro/kernels/delta.py:155")
     return out
 
 
@@ -1033,8 +1121,9 @@ def _profiled(torch, fn):
     ``torch.profiler``: the device's busy time (the sum of its kernels),
     its share of the wall, the five kernels that take most of it, and the
     shares of the busy time in the flash kernels (both cores of rows 1 and
-    9) and in the decode kernels (both cores of rows 2 and 8, the bf16
-    core's combine included)."""
+    9), in the decode kernels (both cores of rows 2 and 8, the bf16 core's
+    combine included) and in the delta kernels (both phases of rows 3 and
+    5; ``delta_kernel`` on a checkout before the two-phase core)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()                               # warm-up
@@ -1058,6 +1147,8 @@ def _profiled(torch, fn):
              if "flash_wgmma" in n or "flash_core" in n]
     decode = [(ms, c) for n, ms, c in kernels
               if "decode_hopper" in n or "decode_core" in n]
+    delta = [(ms, c) for n, ms, c in kernels
+             if "delta_hopper" in n or "delta_kernel" in n]
     return {"wall_ms": wall_ms, "device_busy_ms_profiled": busy,
             "device_busy_share": busy / wall_ms,
             "flash_ms": sum(ms for ms, _ in flash),
@@ -1066,6 +1157,9 @@ def _profiled(torch, fn):
             "decode_ms": sum(ms for ms, _ in decode),
             "decode_launches": sum(c for _, c in decode),
             "decode_share_of_busy": sum(ms for ms, _ in decode) / busy,
+            "delta_ms": sum(ms for ms, _ in delta),
+            "delta_launches": sum(c for _, c in delta),
+            "delta_share_of_busy": sum(ms for ms, _ in delta) / busy,
             "top_kernels": [{"name": n[:80], "ms": ms, "launches": c}
                             for n, ms, c in top]}
 
@@ -1432,9 +1526,11 @@ def main():
     lib = build.build()
     build.library()
     print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
-    # registers and spills of the bf16 decode core's instances
+    # registers and spills of the bf16 decode core's and the delta core's
+    # instances
     decode_ptxas = ptxas_report(str(lib) + ".log", "decode_hopper::")
-    for e in decode_ptxas:
+    delta_ptxas = ptxas_report(str(lib) + ".log", "delta_hopper::")
+    for e in decode_ptxas + delta_ptxas:
         print(f"ptxas {e['name'].split('>(')[0]}>: {e.get('registers')} "
               f"registers, {e.get('spill_stores')} / {e.get('spill_loads')} "
               f"bytes spilled (stores / loads)", flush=True)
@@ -1472,6 +1568,7 @@ def main():
         print(f"{tag}: {summary['wall_s']:.2f} s wall, launches {counts}",
               flush=True)
     paths["kimi_logits"] = compare_logits(torch, dev, cfg, params)
+    paths["kimi_prefill_profile"] = profile_prefill(torch, dev, cfg, params)
     paths["kimi_mla_concat"] = mla_concat_cost(torch, dev, cfg, params)
     del params
     gc.collect()
@@ -1543,6 +1640,7 @@ def main():
           f"{summary['launches']}", flush=True)
     paths["gradient_checks"] = grad_checks
     paths["decode_ptxas"] = decode_ptxas
+    paths["delta_ptxas"] = delta_ptxas
 
     entries = [dict(name=name, route="cuda", source=k["source"],
                     replaces=k["replaces"], launches=launches.get(name, 0),

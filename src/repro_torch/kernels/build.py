@@ -38,9 +38,9 @@ _SIGNATURES = {
     "prfaas_flash_attention": [_P] * 4 + [_I] * 10 + [_F, _I, _P],
     "prfaas_decode_attention": [_P] * 7 + [_L] * 3 + [_I] * 8
                                + [_F, _I, _I, _I, _P],
-    "prfaas_delta_fused": [_P] * 9 + [_I] * 6 + [_P],
+    "prfaas_delta_fused": [_P] * 10 + [_L] + [_I] * 6 + [_P],
     "prfaas_gla_fused": [_P] * 8 + [_I] * 6 + [_P],
-    "prfaas_delta_chunked": [_P] * 8 + [_I] * 6 + [_P],
+    "prfaas_delta_chunked": [_P] * 9 + [_L] + [_I] * 6 + [_P],
     "prfaas_gla_chunked": [_P] * 7 + [_I] * 6 + [_P],
     "prfaas_quantize_int8": [_P, _P, _P, _P, _L, _I, _P],
     "prfaas_paged_decode_attention": [_P] * 8 + [_I] * 10
@@ -119,6 +119,10 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.prfaas_error_string.argtypes = [ctypes.c_int]
         lib.prfaas_error_string.restype = ctypes.c_char_p
+        lib.prfaas_delta_workspace_bytes.argtypes = [_I] * 6
+        lib.prfaas_delta_workspace_bytes.restype = ctypes.c_longlong
+        lib.prfaas_delta_parts.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.prfaas_delta_parts.restype = None
         _lib = lib
     return _lib
 

@@ -24,8 +24,9 @@ import torch
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.decode_attn import (decode_attention,
                                              decode_attention_ref)
-from repro_torch.kernels.delta import (delta_chunked, delta_chunked_fused,
-                                       delta_chunked_ref, mask_padded)
+from repro_torch.kernels.delta import (PARTS, delta_chunked,
+                                       delta_chunked_fused, delta_chunked_ref,
+                                       kernel_parts, mask_padded)
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
 from repro_torch.kernels.gla import (gla_chunked, gla_chunked_fused,
                                      gla_chunked_ref)
@@ -135,6 +136,151 @@ def test_delta_matches_plain(cuda, dtype, B, H, S, dk, dv, lens):
                                o2.float()[valid[:, None].expand(-1, H, -1)],
                                atol=otol[0], rtol=otol[1])
     torch.testing.assert_close(st, st2, atol=1e-4, rtol=1e-3)
+
+
+def _delta_case(dtype, case, dev):
+    """Inputs and lengths (None: the unmasked instance) of an edge case of
+    the two-phase delta core."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    shapes = {"S_1": (2, 2, 1, 64, 64), "S_63": (2, 2, 63, 64, 64),
+              "lengths_0_1_65": (3, 2, 130, 32, 48),
+              "length_mid_chunk": (2, 2, 300, 128, 128),
+              "log_a_-20": (2, 2, 200, 64, 64),
+              "beta_1": (2, 2, 200, 128, 128),
+              "dk_256_dv_48": (2, 2, 150, 256, 48)}
+    B, H, S, dk, dv = shapes[case]
+    q, k, v, la, beta, s0 = _delta_inputs(g, B, H, S, dk, dv, dtype, dev)
+    lens = {"lengths_0_1_65": (0, 1, 65), "length_mid_chunk": (300, 100),
+            "dk_256_dv_48": (150, 77)}.get(case)
+    if case == "log_a_-20":
+        la = -20.0 + 0.5 * torch.rand(la.shape, generator=g, device=dev)
+    if case == "beta_1":
+        beta = torch.ones_like(beta)
+    lengths = (None if lens is None
+               else torch.tensor(lens, dtype=torch.int32, device=dev))
+    return (q, k, v, la, beta, s0), lengths
+
+
+def _delta_check(args, lengths, o, st, dtype, dev):
+    """o (rows below the lengths) and state against the plain version."""
+    q, k, v, la, beta, s0 = args
+    S = q.shape[2]
+    if lengths is None:
+        o2, st2 = delta_chunked_ref(*args)
+        valid = torch.ones((q.shape[0], S), dtype=torch.bool, device=dev)
+    else:
+        la_m, k_m, beta_m = mask_padded(lengths, S, la, k, beta)
+        o2, st2 = delta_chunked_ref(q, k_m, v, la_m, beta_m, s0)
+        valid = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+    valid = valid[:, None].expand(-1, q.shape[1], -1)
+    otol = (1e-4, 1e-3) if dtype == torch.float32 else TOL[dtype]
+    assert torch.isfinite(st).all()
+    torch.testing.assert_close(o.float()[valid], o2.float()[valid],
+                               atol=otol[0], rtol=otol[1])
+    torch.testing.assert_close(st, st2, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["S_1", "S_63", "lengths_0_1_65",
+                                  "length_mid_chunk", "log_a_-20", "beta_1",
+                                  "dk_256_dv_48"])
+def test_delta_core_edge_cases_match_plain(cuda, dtype, case):
+    """The two-phase core (rows 3 and 5) at the shapes and values its
+    rules must take: S of 1 and 63, lengths 0, 1 and 65 and one ending
+    mid-chunk, decays of -20 (exp underflows), beta = 1, dk 256 with dv 48
+    (a partial column slice, phase 2 reading its record from global
+    memory); masked where the case has lengths, unmasked otherwise."""
+    args, lengths = _delta_case(dtype, case, cuda)
+    if lengths is None:
+        o, st = delta_chunked(*args)
+    else:
+        o, st = delta_chunked_fused(*args[:5], lengths, args[5])
+    torch.cuda.synchronize()
+    _delta_check(args, lengths, o, st, dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_delta_nan_past_lengths_never_reaches_the_state(cuda, dtype):
+    """NaN in every row past a length (q, k, v, log_a, beta): the valid
+    outputs and the state equal the plain version's on the clean inputs."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    B, H, S = 3, 2, 200
+    args = _delta_inputs(g, B, H, S, 64, 64, dtype, cuda)
+    lengths = torch.tensor((0, 70, 200), dtype=torch.int32, device=cuda)
+    dead = torch.arange(S, device=cuda)[None, :] >= lengths[:, None]
+    dead = dead[:, None].expand(B, H, S)
+    poisoned = [x.clone() for x in args]
+    for x in poisoned[:5]:
+        x[dead] = float("nan")
+    o, st = delta_chunked_fused(*poisoned[:5], lengths, poisoned[5])
+    torch.cuda.synchronize()
+    _delta_check(args, lengths, o, st, dtype, cuda)
+
+
+@pytest.mark.parametrize("op", ["delta_chunked", "delta_chunked_fused"])
+def test_delta_core_refuses_what_it_cannot_take(cuda, op):
+    """A key dim past 256 (the core pads dk to 64, 128, 192 or 256) is
+    refused before any launch."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    q, k, v, la, beta, s0 = _delta_inputs(g, 1, 2, 64, 264, 32,
+                                          torch.bfloat16, cuda)
+    build.reset_launches()
+    with pytest.raises(ValueError):
+        if op == "delta_chunked":
+            delta_chunked(q, k, v, la, beta, s0)
+        else:
+            delta_chunked_fused(q, k, v, la, beta, torch.full(
+                (1,), 64, dtype=torch.int32, device=cuda), s0)
+    assert not build.LAUNCHES
+
+
+@pytest.mark.parametrize("op", ["delta_chunked", "delta_chunked_fused"])
+def test_delta_core_rounds_like_float32(cuda, op):
+    """The core's own bf16 outputs against the float32 plain version's
+    rounding, at the kimi-like inputs of
+    ``tests/test_torch_delta_plan.py::test_split_products_round_like_float32``
+    (bf16 q, k, v at kimi-linear's head over 512 tokens; values up to ~10;
+    decays down to -4) with the decays rounded to multiples of 2^-10:
+    another bf16 value in at most 2e-4 of the outputs.  The rounding makes
+    every cumulative log decay exact in float32, so the kernel and the
+    plain version share their decays; unrounded, a chunk's sums reach ~-90
+    and the plain version on the card already differs from itself on the
+    CPU in 5e-4 of the outputs through the order of the cumulative sum.
+    Two bf16 parts everywhere met every float32 tolerance, yet moved
+    kimi-linear's bf16 prefill logits by 15 % through its expert routing
+    (2e-3 of the outputs here on the H100); this holds the part counts
+    compiled into ``csrc/delta_hopper.cuh``, where the CPU test holds only
+    their mirror."""
+    B, H, S, d = 1, 8, 512, 128
+    r = np.random.default_rng(9)
+    q, k, v = (r.standard_normal((B, H, S, d)).astype(np.float32)
+               for _ in range(3))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    k /= np.linalg.norm(k, axis=-1, keepdims=True)
+    r = np.random.default_rng(9)
+    la = (-r.uniform(0.1, 2.0, (B, H, S)) ** 2).astype(np.float32)
+    la = np.round(la * 1024) / 1024
+    beta = r.uniform(0.01, 1.0, (B, H, S)).astype(np.float32)
+    q, k, v = (torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+               for x in (q, k, 3.0 * v))
+    la = torch.from_numpy(la.astype(np.float32)).to(cuda)
+    beta = torch.from_numpy(beta).to(cuda)
+    s0 = torch.zeros((B, H, d, d), device=cuda)
+    if op == "delta_chunked":
+        o, _ = delta_chunked(q, k, v, la, beta, s0)
+    else:
+        o, _ = delta_chunked_fused(q, k, v, la, beta, torch.full(
+            (B,), S, dtype=torch.int32, device=cuda), s0)
+    torch.cuda.synchronize()
+    want, _ = delta_chunked_ref(q.float(), k.float(), v.float(), la, beta, s0)
+    flips = float((o != want.to(torch.bfloat16)).float().mean())
+    assert flips <= 2e-4, flips
+
+
+def test_delta_core_parts_are_the_mirrors(cuda):
+    """The bf16 part counts compiled into ``csrc/delta_hopper.cuh`` are the
+    ``PARTS`` that the CPU mirror in ``kernels/delta.py`` emulates."""
+    assert kernel_parts() == PARTS
 
 
 def _gla_inputs(g, B, H, S, dk, dv, lengths, dtype, dev):
