@@ -19,8 +19,10 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      main paths run, MLA, GQA and MHA, and the paged one also at zamba2's
      decode block, 8 rows of 4000 tokens; the delta rule, rows 3 and 5, at
      its table shape and at the shapes the main paths run, kimi's prefill
-     chunk and the recipe's float32 microbatch), after printing the ptxas
-     registers and spills of the bf16 decode core's and the delta core's
+     chunk and the recipe's float32 microbatch; gated linear attention,
+     rows 6 and 7, at its table shapes and at zamba2's prefill chunk and
+     training microbatch), after printing the ptxas registers and spills
+     of the bf16 decode core's, the delta core's and the GLA core's
      instances;
      then each differentiable op (attention, gla and delta, with and
      without lengths) at the training paths' shapes and types: its kernel
@@ -57,7 +59,7 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      concatenation against a decode step; and profile one paged decode
      block of mistral-nemo-12b and of zamba2-1.2b, and one 4096-token
      prefill of kimi, mistral-nemo and zamba2 (``torch.profiler``: device
-     busy time, the largest kernels and the flash, decode and delta
+     busy time, the largest kernels and the flash, decode, delta and GLA
      kernels' shares);
   6. the training path on ``zamba2-1.2b`` at full width and depth: four
      AdamW steps of 2 x 2048 tokens in two microbatches with remat
@@ -273,31 +275,42 @@ def delta_case(torch, dev, g, tag):
                 shape=shape, dtype=dtype)
 
 
-def time_delta_shapes(torch, dev):
-    """ms of rows 3 and 5 at each of DELTA_SHAPES, by CUDA events: only the
-    wrappers' public calls, so the same timing runs on a parent checkout's
-    kernels (the A/B loop in .claude/skills/verify/SKILL.md)."""
+def _time_shapes(torch, dev, shapes, case_fn):
     g = torch.Generator(device=dev).manual_seed(8)
     out = {}
-    for tag in DELTA_SHAPES:
-        case = delta_case(torch, dev, g, tag)
+    for tag in shapes:
+        case = case_fn(torch, dev, g, tag)
         out[tag] = _ms(case["run"], 10)
         del case
         torch.cuda.empty_cache()
     return out
 
 
-def delta_entry(torch, dev, g, close, atol_needed, name, source, replaces):
-    """Row 3 or 5: the kernel against its plain version at each of its
-    DELTA_SHAPES (outputs at TOL_BF16 in bf16, TOL_STATE in float32, below
-    the lengths; the state at TOL_STATE), each shape's time, plain time,
-    bound and device time per kernel (the core's two phases); the table
+def time_delta_shapes(torch, dev):
+    """ms of rows 3 and 5 at each of DELTA_SHAPES, by CUDA events: only the
+    wrappers' public calls, so the same timing runs on a parent checkout's
+    kernels (two checkouts timed in turns)."""
+    return _time_shapes(torch, dev, DELTA_SHAPES, delta_case)
+
+
+def time_gla_shapes(torch, dev):
+    """ms of rows 6 and 7 at each of GLA_SHAPES, as time_delta_shapes."""
+    return _time_shapes(torch, dev, GLA_SHAPES, gla_case)
+
+
+def scan_entry(torch, dev, g, close, atol_needed, name, source, replaces,
+               shapes, case_fn):
+    """Rows 3 and 5 (DELTA_SHAPES, delta_case) or 6 and 7 (GLA_SHAPES,
+    gla_case): the kernel against its plain version at each of its shapes
+    (outputs at TOL_BF16 in bf16, TOL_STATE in float32, below the lengths;
+    the state at TOL_STATE), each shape's time, plain time, bound, bf16
+    flip rate and device time per kernel (the core's phases); the table
     shape's numbers are the entry's own."""
-    shapes = {}
-    for tag, spec in DELTA_SHAPES.items():
+    out = {}
+    for tag, spec in shapes.items():
         if spec[0] != name:
             continue
-        case = delta_case(torch, dev, g, tag)
+        case = case_fn(torch, dev, g, tag)
         o, st = case["run"]()
         torch.cuda.synchronize()
         o2, st2 = case["plain"]()
@@ -305,24 +318,100 @@ def delta_entry(torch, dev, g, close, atol_needed, name, source, replaces):
         otol = TOL_BF16 if case["dtype"] == torch.bfloat16 else TOL_STATE
         e_o = close(f"{name} (o, {tag})", o[vm], o2[vm], *otol)
         e_s = close(f"{name} (state, {tag})", st, st2, *TOL_STATE)
-        shapes[tag] = dict(
+        out[tag] = dict(
             max_abs_err=e_o, state_max_abs_err=e_s,
             atol_needed=atol_needed(o[vm], o2[vm], otol[1]),
             ms=_ms(case["run"], 10), plain_ms=_ms(case["plain"], 2),
             bound_ms=case["bound"][0], bound_by=case["bound"][1],
             library_ms=None, shape=case["shape"])
-        shapes[tag]["bound_share"] = shapes[tag]["bound_ms"] / shapes[tag]["ms"]
-        shapes[tag]["phases_ms"] = _kernel_ms(torch, case["run"], 5)
+        out[tag]["bound_share"] = out[tag]["bound_ms"] / out[tag]["ms"]
+        if case["dtype"] == torch.bfloat16:
+            # outputs that round to another bf16 value than the float32
+            # plain version's
+            out[tag]["bf16_flip_rate"] = float(
+                (o[vm] != o2[vm]).float().mean())
+        out[tag]["phases_ms"] = _kernel_ms(torch, case["run"], 5)
         del case, o, st, o2, st2
         torch.cuda.empty_cache()
-    table = shapes[next(t for t in shapes if t.endswith("_table"))]
+    table = out[next(t for t in out if t.endswith("_table"))]
     return dict(source=source, replaces=replaces,
-                max_abs_err=max(c["max_abs_err"] for c in shapes.values()),
-                atol_needed=max(c["atol_needed"] for c in shapes.values()),
+                max_abs_err=max(c["max_abs_err"] for c in out.values()),
+                atol_needed=max(c["atol_needed"] for c in out.values()),
                 **{key: table[key] for key in ("ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms",
                                                "shape")},
-                shapes=shapes)
+                shapes=out)
+
+
+# rows 6 and 7 (the GLA core), all bf16 at zamba2's Mamba2 head (H = 32,
+# dk = 64, dv = 128): the shape each is timed at in the table, and the
+# shapes the main paths run it at (zamba2's 4096-token prefill chunk,
+# masked; its 2048-token training microbatch, unmasked)
+GLA_SHAPES = {
+    "row7_table": ("gla_chunked_fused", (2, 32, 4096), (4096, 2500)),
+    "row7_zamba2_prefill": ("gla_chunked_fused", (1, 32, 4096), (4096,)),
+    "row6_table": ("gla_chunked", (2, 32, 2048), None),
+    "row6_zamba2_train": ("gla_chunked", (1, 32, 2048), None),
+}
+
+
+def gla_case(torch, dev, g, tag):
+    """One of GLA_SHAPES: its inputs (q, k at the Mamba2 scale, decays
+    from mild to strong in multiples of 2^-10, a nonzero state), the
+    kernel and its plain version as callables over them, the rows below
+    the lengths, and the bound: each valid row's q, k, v, o and log_a
+    once, the state in and out and the lengths, against the FLOPs of the
+    causal Q K^T and A V, q S and the state update at the bf16
+    tensor-core rate."""
+    from repro_torch.kernels import gla as kg
+
+    name, (B, H, S), lens = GLA_SHAPES[tag]
+    dk, dv = 64, 128
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    q = randn(B, H, S, dk).to(torch.bfloat16)
+    k = randn(B, H, S, dk, scale=dk ** -0.5).to(torch.bfloat16)
+    v = randn(B, H, S, dv).to(torch.bfloat16)
+    # decays in multiples of 2^-10: every cumulative sum is exact, so the
+    # kernel and the plain version share them
+    la = torch.round(-2048.0 * torch.rand(
+        (B, H, S), generator=g, device=dev) ** 3) / 1024
+    s0 = randn(B, H, dk, dv, scale=0.5)
+    if lens is None:
+        lengths = None
+        valid = torch.ones((B, H, S), dtype=torch.bool, device=dev)
+
+        def run():
+            return kg.gla_chunked(q, k, v, la, s0)
+
+        def plain():
+            return kg.gla_chunked_ref(q, k, v, la, s0)
+    else:
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        valid = (torch.arange(S, device=dev)[None, :]
+                 < lengths[:, None])[:, None].expand(B, H, S)
+
+        def run():
+            return kg.gla_chunked_fused(q, k, v, la, lengths, s0)
+
+        def plain():
+            la_m, k_m = kg.mask_padded(lengths, S, la, k)
+            return kg.gla_chunked_ref(q, k_m, v, la_m, s0)
+    rows = int(valid.sum())
+    chunks = H * sum(-(-min(n, S) // 64) for n in (lens or (S,) * B))
+    # causal pairs of q k^T and A v, then q S and the state update
+    per_chunk = 64 * 65 // 2 * 2 * (dk + dv) + 2 * (2 * 64 * dk * dv)
+    bnd = _bound(rows * ((2 * dk + 2 * dv) * 2 + 4) + 2 * _nbytes(s0)
+                 + (0 if lengths is None else _nbytes(lengths)),
+                 chunks * per_chunk, BF16_FLOP_S)
+    shape = (f"q,k ({B},{H},{S},{dk}) v ({B},{H},{S},{dv}) bf16, log_a f32, "
+             f"state ({B},{H},{dk},{dv}) f32 nonzero, "
+             + ("no lengths" if lens is None
+                else "lengths " + ", ".join(map(str, lens))))
+    return dict(name=name, run=run, plain=plain, valid=valid, bound=bnd,
+                shape=shape, dtype=torch.bfloat16)
 
 
 def _kernel_ms(torch, fn, reps: int):
@@ -498,10 +587,10 @@ def check_kernels(torch, dev):
 
     # delta, masked (row 3): KDA prefill, H = 56, dk = dv = 128, ragged
     # lengths, and kimi's prefill chunk
-    out["delta_chunked_fused"] = delta_entry(
+    out["delta_chunked_fused"] = scan_entry(
         torch, dev, g, close, atol_needed, "delta_chunked_fused",
-        "src/repro_torch/csrc/delta.cu",
-        "src/repro/kernels/delta.py:218")
+        "src/repro_torch/csrc/delta.cu", "src/repro/kernels/delta.py:218",
+        DELTA_SHAPES, delta_case)
 
     # quantize: one wire leaf (4096, 472) float32
     x = randn(4096, 472, dtype=torch.float32, scale=3.0)
@@ -521,96 +610,31 @@ def check_kernels(torch, dev):
         bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
         shape="x (4096,472) f32 -> int8 + scale, byte-identical")
 
-    out.update(check_gla_kernel(torch, dev, g, randn, close, atol_needed))
+    # gla, masked (row 7): zamba2's Mamba2 prefill, ragged lengths
+    out["gla_chunked_fused"] = scan_entry(
+        torch, dev, g, close, atol_needed, "gla_chunked_fused",
+        "src/repro_torch/csrc/gla.cu", "src/repro/kernels/gla.py:185",
+        GLA_SHAPES, gla_case)
     out.update(check_paged_kernels(torch, dev, g, randn, close, atol_needed))
-    out.update(check_unmasked_kernels(torch, dev, g, randn, close,
-                                      atol_needed))
+    out.update(check_unmasked_kernels(torch, dev, g, close, atol_needed))
     return out
 
 
-def check_gla_kernel(torch, dev, g, randn, close, atol_needed):
-    """Phase 3, gated linear attention: the zamba2 Mamba2 prefill shape (H
-    = 32, dk = 64, dv = 128), ragged lengths and a nonzero initial state,
-    against its plain version."""
-    from repro_torch.kernels.gla import (gla_chunked_fused, gla_chunked_ref,
-                                         mask_padded)
-
-    B, H, S, dk, dv = 2, 32, 4096, 64, 128
-    q = randn(B, H, S, dk)
-    k = randn(B, H, S, dk, scale=dk ** -0.5)
-    v = randn(B, H, S, dv)
-    la = -2.0 * torch.rand((B, H, S), generator=g, device=dev) ** 3
-    s0 = randn(B, H, dk, dv, dtype=torch.float32, scale=0.5)
-    lens = torch.tensor([4096, 2500], dtype=torch.int32, device=dev)
-    o, st = gla_chunked_fused(q, k, v, la, lens, s0)
-    torch.cuda.synchronize()
-
-    def plain():
-        la_m, k_m = mask_padded(lens, S, la, k)
-        return gla_chunked_ref(q, k_m, v, la_m, s0)
-
-    o2, st2 = plain()
-    valid = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None]
-    valid = valid.expand(B, H, S)
-    e_o = close("gla_chunked_fused (o)", o[valid], o2[valid], *TOL_BF16)
-    close("gla_chunked_fused (state)", st, st2, *TOL_STATE)
-    rows = int(lens.sum()) * H
-    chunks = sum(-(-int(n) // 64) for n in lens.tolist()) * H
-    # causal pairs of q k^T and A v, then q S and the state update
-    per_chunk = 64 * 65 // 2 * 2 * (dk + dv) + 2 * (2 * 64 * dk * dv)
-    bnd = _bound(rows * ((2 * dk + 2 * dv) * 2 + 4) + _nbytes(s0, st, lens),
-                 chunks * per_chunk, BF16_FLOP_S)
-    return {"gla_chunked_fused": dict(
-        source="src/repro_torch/csrc/gla.cu",
-        replaces="src/repro/kernels/gla.py:185",
-        max_abs_err=e_o, atol_needed=atol_needed(o[valid], o2[valid]),
-        ms=_ms(lambda: gla_chunked_fused(q, k, v, la, lens, s0), 10),
-        plain_ms=_ms(plain, 3),
-        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
-        shape="q,k (2,32,4096,64) v (2,32,4096,128) bf16, log_a f32, state "
-              "(2,32,64,128) f32 nonzero, lengths 4096, 2500")}
-
-
-def check_unmasked_kernels(torch, dev, g, randn, close, atol_needed):
+def check_unmasked_kernels(torch, dev, g, close, atol_needed):
     """Phase 3, rows 5 and 6: the unmasked scans of training, each against
     its plain version with a nonzero initial state.  gla_chunked at
-    zamba2's Mamba2 head (H = 32, dk = 64, dv = 128) and a 2048-token
-    training row, delta_chunked at row 3's kimi KDA shape, so the masked
-    and unmasked delta kernels compare directly, and at the KDA:MLA
-    recipe's float32 microbatch."""
-    from repro_torch.kernels.gla import gla_chunked, gla_chunked_ref
-
-    out = {}
-    B, H, S, dk, dv = 2, 32, 2048, 64, 128
-    q = randn(B, H, S, dk)
-    k = randn(B, H, S, dk, scale=dk ** -0.5)
-    v = randn(B, H, S, dv)
-    la = -2.0 * torch.rand((B, H, S), generator=g, device=dev) ** 3
-    s0 = randn(B, H, dk, dv, dtype=torch.float32, scale=0.5)
-    o, st = gla_chunked(q, k, v, la, s0)
-    torch.cuda.synchronize()
-    o2, st2 = gla_chunked_ref(q, k, v, la, s0)
-    e_o = close("gla_chunked (o)", o, o2, *TOL_BF16)
-    close("gla_chunked (state)", st, st2, *TOL_STATE)
-    chunks = B * H * (-(-S // 64))
-    per_chunk = 64 * 65 // 2 * 2 * (dk + dv) + 2 * (2 * 64 * dk * dv)
-    bnd = _bound(B * H * S * ((2 * dk + 2 * dv) * 2 + 4) + _nbytes(s0, st),
-                 chunks * per_chunk, BF16_FLOP_S)
-    out["gla_chunked"] = dict(
-        source="src/repro_torch/csrc/gla.cu",
-        replaces="src/repro/kernels/gla.py:126",
-        max_abs_err=e_o, atol_needed=atol_needed(o, o2),
-        ms=_ms(lambda: gla_chunked(q, k, v, la, s0), 10),
-        plain_ms=_ms(lambda: gla_chunked_ref(q, k, v, la, s0), 3),
-        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
-        shape="q,k (2,32,2048,64) v (2,32,2048,128) bf16, log_a f32, state "
-              "(2,32,64,128) f32 nonzero, no lengths")
-    del q, k, v, la, s0, o, o2
-
-    out["delta_chunked"] = delta_entry(
+    zamba2's Mamba2 head (H = 32, dk = 64, dv = 128) at its table shape and
+    zamba2's 2048-token training microbatch, delta_chunked at row 3's kimi
+    KDA shape, so the masked and unmasked delta kernels compare directly,
+    and at the KDA:MLA recipe's float32 microbatch."""
+    out = {"gla_chunked": scan_entry(
+        torch, dev, g, close, atol_needed, "gla_chunked",
+        "src/repro_torch/csrc/gla.cu", "src/repro/kernels/gla.py:126",
+        GLA_SHAPES, gla_case)}
+    out["delta_chunked"] = scan_entry(
         torch, dev, g, close, atol_needed, "delta_chunked",
-        "src/repro_torch/csrc/delta.cu",
-        "src/repro/kernels/delta.py:155")
+        "src/repro_torch/csrc/delta.cu", "src/repro/kernels/delta.py:155",
+        DELTA_SHAPES, delta_case)
     return out
 
 
@@ -1122,8 +1146,10 @@ def _profiled(torch, fn):
     its share of the wall, the five kernels that take most of it, and the
     shares of the busy time in the flash kernels (both cores of rows 1 and
     9), in the decode kernels (both cores of rows 2 and 8, the bf16 core's
-    combine included) and in the delta kernels (both phases of rows 3 and
-    5; ``delta_kernel`` on a checkout before the two-phase core)."""
+    combine included), in the delta kernels (both phases of rows 3 and 5;
+    ``delta_kernel`` on a checkout before the two-phase core) and in the
+    GLA kernels (the bf16 core's three phases of rows 6 and 7 and the
+    float32 ``gla_kernel``, the only one on a checkout before the core)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()                               # warm-up
@@ -1149,6 +1175,8 @@ def _profiled(torch, fn):
               if "decode_hopper" in n or "decode_core" in n]
     delta = [(ms, c) for n, ms, c in kernels
              if "delta_hopper" in n or "delta_kernel" in n]
+    gla = [(ms, c) for n, ms, c in kernels
+           if "gla_hopper" in n or "gla_kernel" in n]
     return {"wall_ms": wall_ms, "device_busy_ms_profiled": busy,
             "device_busy_share": busy / wall_ms,
             "flash_ms": sum(ms for ms, _ in flash),
@@ -1160,6 +1188,9 @@ def _profiled(torch, fn):
             "delta_ms": sum(ms for ms, _ in delta),
             "delta_launches": sum(c for _, c in delta),
             "delta_share_of_busy": sum(ms for ms, _ in delta) / busy,
+            "gla_ms": sum(ms for ms, _ in gla),
+            "gla_launches": sum(c for _, c in gla),
+            "gla_share_of_busy": sum(ms for ms, _ in gla) / busy,
             "top_kernels": [{"name": n[:80], "ms": ms, "launches": c}
                             for n, ms, c in top]}
 
@@ -1526,11 +1557,12 @@ def main():
     lib = build.build()
     build.library()
     print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
-    # registers and spills of the bf16 decode core's and the delta core's
-    # instances
+    # registers and spills of the bf16 decode core's, the delta core's and
+    # the GLA core's instances
     decode_ptxas = ptxas_report(str(lib) + ".log", "decode_hopper::")
     delta_ptxas = ptxas_report(str(lib) + ".log", "delta_hopper::")
-    for e in decode_ptxas + delta_ptxas:
+    gla_ptxas = ptxas_report(str(lib) + ".log", "gla_hopper::")
+    for e in decode_ptxas + delta_ptxas + gla_ptxas:
         print(f"ptxas {e['name'].split('>(')[0]}>: {e.get('registers')} "
               f"registers, {e.get('spill_stores')} / {e.get('spill_loads')} "
               f"bytes spilled (stores / loads)", flush=True)
@@ -1641,6 +1673,7 @@ def main():
     paths["gradient_checks"] = grad_checks
     paths["decode_ptxas"] = decode_ptxas
     paths["delta_ptxas"] = delta_ptxas
+    paths["gla_ptxas"] = gla_ptxas
 
     entries = [dict(name=name, route="cuda", source=k["source"],
                     replaces=k["replaces"], launches=launches.get(name, 0),

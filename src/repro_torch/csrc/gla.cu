@@ -23,21 +23,20 @@
 // included, never reaches the state.  Output rows past a length are
 // unspecified, as in the TPU kernel.
 //
-// What bounds it on the H100: the recurrence.  Per chunk the work is three
-// small products (64 x 64 x dk, 64 x 64 x dv, dk x 64 x dv) over 64 rows of
-// q/k/v, and the chunks of one head run in order.  This first version runs
-// the products in float32 on the SIMT cores, so it is bound by the FP32
-// FMA rate of the blocks in flight, far above the bytes it moves.
+// bf16 inputs run the three-phase Hopper core of gla_hopper.cuh (the
+// products of all chunks at once on the tensor cores around an
+// elementwise state pass), dispatched here on the key dim padded to 64,
+// 128, 192 or 256.  float32 inputs run the SIMT kernel below.
 //
-// Design: the TPU kernel's sequential grid over chunks becomes a loop over
-// chunks inside one block, with the float32 state held in shared memory.
-// Column j of the state depends only on v[:, j], so each block owns DVB =
-// 32 state columns of one (batch, head): with one long prompt (B = 1, H =
-// 32, dv = 128) that is 128 blocks for the card's 132 SMs instead of 32.
-// A partial last slice (dv not a multiple of 32, as mLSTM's dv = 257) has
-// its idle lanes compute on zeros and store nothing.  The cumulative sum
-// is taken in sequence order: thread i adds rows 0..i one by one.
-#include "common.cuh"
+// The float32 kernel: the TPU kernel's sequential grid over chunks becomes
+// a loop over chunks inside one block, with the float32 state held in
+// shared memory.  Column j of the state depends only on v[:, j], so each
+// block owns DVB = 32 state columns of one (batch, head).  A partial last
+// slice (dv not a multiple of 32, as mLSTM's dv = 257) has its idle lanes
+// compute on zeros and store nothing.  Its products run in float32 on the
+// SIMT cores, bound by their FMA rate and by the chunks of a head running
+// in order.
+#include "gla_hopper.cuh"
 
 namespace {
 
@@ -179,17 +178,43 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }
 
 template <bool kMasked>
+cudaError_t by_width(const void* q, const void* k, const void* v,
+                     const float* log_a, const int* lengths, const float* s0,
+                     void* o, float* sT, char* ws, long long ws_bytes, int B,
+                     int H, int S, int dk, int dv, cudaStream_t stream) {
+  const __nv_bfloat16* qq = static_cast<const __nv_bfloat16*>(q);
+  const __nv_bfloat16* kk = static_cast<const __nv_bfloat16*>(k);
+  const __nv_bfloat16* vv = static_cast<const __nv_bfloat16*>(v);
+  __nv_bfloat16* oo = static_cast<__nv_bfloat16*>(o);
+  switch (cdiv(dk, 64)) {
+#define PRFAAS_GLA_MT(mt)                                                   \
+  case mt:                                                                  \
+    return gla_hopper::run<kMasked, mt>(qq, kk, vv, log_a, lengths, s0, oo, \
+                                        sT, ws, ws_bytes, B, H, S, dk, dv,  \
+                                        stream);
+    PRFAAS_GLA_MT(1)
+    PRFAAS_GLA_MT(2)
+    PRFAAS_GLA_MT(3)
+    PRFAAS_GLA_MT(4)
+#undef PRFAAS_GLA_MT
+  }
+  return cudaErrorInvalidValue;  // dk outside 1..256
+}
+
+template <bool kMasked>
 int dispatch(const void* q, const void* k, const void* v, const void* log_a,
-             const void* lengths, const void* s0, void* o, void* sT, int B,
-             int H, int S, int dk, int dv, int dtype, void* stream) {
+             const void* lengths, const void* s0, void* o, void* sT, void* ws,
+             long long ws_bytes, int B, int H, int S, int dk, int dv,
+             int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* la = static_cast<const float*>(log_a);
   const int* lens = static_cast<const int*>(lengths);
   const float* st0 = static_cast<const float*>(s0);
   float* stT = static_cast<float*>(sT);
   if (dtype == kBF16)
-    return launch<__nv_bfloat16, kMasked>(q, k, v, la, lens, st0, o, stT, B,
-                                          H, S, dk, dv, s);
+    return by_width<kMasked>(q, k, v, la, lens, st0, o, stT,
+                             static_cast<char*>(ws), ws_bytes, B, H, S, dk,
+                             dv, s);
   if (dtype == kF32)
     return launch<float, kMasked>(q, k, v, la, lens, st0, o, stT, B, H, S,
                                   dk, dv, s);
@@ -198,23 +223,48 @@ int dispatch(const void* q, const void* k, const void* v, const void* log_a,
 
 }  // namespace
 
+// Bytes of the workspace both entry points need at these shapes (0 for
+// float32, which needs none), or -1 for a dtype or key dim they refuse.
+PRFAAS_API long long prfaas_gla_workspace_bytes(int B, int H, int S, int dk,
+                                                int dv, int dtype) {
+  if (dtype == kF32) return 0;
+  if (dtype != kBF16) return -1;
+  switch (cdiv(dk, 64)) {
+    case 1: return gla_hopper::Layout<1>::workspace(B, H, S, dv);
+    case 2: return gla_hopper::Layout<2>::workspace(B, H, S, dv);
+    case 3: return gla_hopper::Layout<3>::workspace(B, H, S, dv);
+    case 4: return gla_hopper::Layout<4>::workspace(B, H, S, dv);
+  }
+  return -1;
+}
+
+// The bf16 parts of the core's float32 operands, in the order k . kscale,
+// A, S (kernels/gla.py's PARTS mirrors them).
+PRFAAS_API void prfaas_gla_parts(int* parts) {
+  parts[0] = gla_hopper::PK;
+  parts[1] = gla_hopper::PA;
+  parts[2] = gla_hopper::PS;
+}
+
 // q, k (B,H,S,dk), v (B,H,S,dv) of one dtype; log_a (B,H,S) float32;
-// lengths (B,) int32; s0 (B,H,dk,dv) float32 -> o (B,H,S,dv) in q's dtype,
-// sT (B,H,dk,dv) float32.
+// lengths (B,) int32; s0 (B,H,dk,dv) float32; ws a workspace of ws_bytes
+// (prfaas_gla_workspace_bytes) -> o (B,H,S,dv) in q's dtype, sT
+// (B,H,dk,dv) float32.
 PRFAAS_API int prfaas_gla_fused(const void* q, const void* k, const void* v,
                                 const void* log_a, const void* lengths,
-                                const void* s0, void* o, void* sT, int B,
-                                int H, int S, int dk, int dv, int dtype,
-                                void* stream) {
-  return dispatch<true>(q, k, v, log_a, lengths, s0, o, sT, B, H, S, dk, dv,
-                        dtype, stream);
+                                const void* s0, void* o, void* sT, void* ws,
+                                long long ws_bytes, int B, int H, int S,
+                                int dk, int dv, int dtype, void* stream) {
+  return dispatch<true>(q, k, v, log_a, lengths, s0, o, sT, ws, ws_bytes, B,
+                        H, S, dk, dv, dtype, stream);
 }
 
 // The same without lengths: every row of every batch row is valid.
 PRFAAS_API int prfaas_gla_chunked(const void* q, const void* k, const void* v,
                                   const void* log_a, const void* s0, void* o,
-                                  void* sT, int B, int H, int S, int dk,
-                                  int dv, int dtype, void* stream) {
-  return dispatch<false>(q, k, v, log_a, nullptr, s0, o, sT, B, H, S, dk, dv,
-                         dtype, stream);
+                                  void* sT, void* ws, long long ws_bytes,
+                                  int B, int H, int S, int dk, int dv,
+                                  int dtype, void* stream) {
+  return dispatch<false>(q, k, v, log_a, nullptr, s0, o, sT, ws, ws_bytes, B,
+                         H, S, dk, dv, dtype, stream);
 }

@@ -39,9 +39,9 @@ _SIGNATURES = {
     "prfaas_decode_attention": [_P] * 7 + [_L] * 3 + [_I] * 8
                                + [_F, _I, _I, _I, _P],
     "prfaas_delta_fused": [_P] * 10 + [_L] + [_I] * 6 + [_P],
-    "prfaas_gla_fused": [_P] * 8 + [_I] * 6 + [_P],
+    "prfaas_gla_fused": [_P] * 9 + [_L] + [_I] * 6 + [_P],
     "prfaas_delta_chunked": [_P] * 9 + [_L] + [_I] * 6 + [_P],
-    "prfaas_gla_chunked": [_P] * 7 + [_I] * 6 + [_P],
+    "prfaas_gla_chunked": [_P] * 8 + [_L] + [_I] * 6 + [_P],
     "prfaas_quantize_int8": [_P, _P, _P, _P, _L, _I, _P],
     "prfaas_paged_decode_attention": [_P] * 8 + [_I] * 10
                                      + [_F, _I, _I, _I, _P],
@@ -121,8 +121,11 @@ def library() -> ctypes.CDLL:
         lib.prfaas_error_string.restype = ctypes.c_char_p
         lib.prfaas_delta_workspace_bytes.argtypes = [_I] * 6
         lib.prfaas_delta_workspace_bytes.restype = ctypes.c_longlong
-        lib.prfaas_delta_parts.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.prfaas_delta_parts.restype = None
+        lib.prfaas_gla_workspace_bytes.argtypes = [_I] * 6
+        lib.prfaas_gla_workspace_bytes.restype = ctypes.c_longlong
+        for parts in (lib.prfaas_delta_parts, lib.prfaas_gla_parts):
+            parts.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            parts.restype = None
         _lib = lib
     return _lib
 

@@ -28,6 +28,7 @@ from repro_torch.kernels.delta import (PARTS, delta_chunked,
                                        delta_chunked_fused, delta_chunked_ref,
                                        kernel_parts, mask_padded)
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+from repro_torch.kernels import gla as kgla
 from repro_torch.kernels.gla import (gla_chunked, gla_chunked_fused,
                                      gla_chunked_ref)
 from repro_torch.kernels.paged_decode_attn import (
@@ -331,6 +332,149 @@ def test_gla_op_routes_cuda_tensors_to_the_kernel(cuda):
     ops.gla(q, q, q, torch.zeros((1, 2, 16), device=cuda),
             lengths=torch.tensor([9], device=cuda))
     assert dict(build.LAUNCHES) == {"gla_chunked": 1, "gla_chunked_fused": 1}
+
+
+def _gla_check(args, lengths, o, st, dtype, dev):
+    """o (rows below the lengths) and state against the plain version."""
+    q, k, v, la, s0 = args
+    S = q.shape[2]
+    if lengths is None:
+        o2, st2 = gla_chunked_ref(*args)
+        valid = torch.ones((q.shape[0], S), dtype=torch.bool, device=dev)
+    else:
+        la_m, k_m = mask_padded(lengths, S, la, k)
+        o2, st2 = gla_chunked_ref(q, k_m, v, la_m, s0)
+        valid = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+    valid = valid[:, None].expand(-1, q.shape[1], -1)
+    otol = (1e-4, 1e-3) if dtype == torch.float32 else TOL[dtype]
+    assert torch.isfinite(st).all()
+    torch.testing.assert_close(o.float()[valid], o2.float()[valid],
+                               atol=otol[0], rtol=otol[1])
+    torch.testing.assert_close(st, st2, atol=1e-4, rtol=1e-3)
+
+
+_GLA_CASES = {  # (B, H, S, dk, dv), lengths (None: the unmasked instance)
+    "dk_256_dv_257": ((2, 2, 150, 256, 257), (150, 77)),
+    "lengths_0_1_65": ((3, 2, 130, 64, 128), (0, 1, 65)),
+    "length_mid_chunk": ((2, 4, 300, 64, 128), (300, 100)),
+    "S_40": ((2, 2, 40, 64, 128), (40, 17)),
+    "S_1": ((2, 2, 1, 64, 128), None),
+    "S_63_unmasked": ((2, 2, 63, 32, 48), None),
+    "B_5": ((5, 3, 200, 64, 128), (200, 1, 64, 129, 150)),
+    "B_5_unmasked": ((5, 3, 200, 64, 128), None),
+}
+
+
+@pytest.mark.parametrize("case", list(_GLA_CASES))
+def test_gla_core_edge_cases_match_plain(cuda, case):
+    """The three-phase bf16 core (rows 6 and 7) at the shapes its rules
+    must take: mLSTM's dk 256 with dv 257 (element loads, a partial
+    column tile), lengths 0, 1 and 65 and one ending mid-chunk, S of 40
+    and 1 and 63 (a single partial chunk), more than two batch rows;
+    masked where the case has lengths, unmasked otherwise."""
+    (B, H, S, dk, dv), lens = _GLA_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(24)
+    lengths = torch.tensor(lens or (S,) * B, dtype=torch.int32, device=cuda)
+    args = _gla_inputs(g, B, H, S, dk, dv, lengths, torch.bfloat16, cuda)
+    if lens is None:
+        o, st = gla_chunked(*args)
+        lengths = None
+    else:
+        o, st = gla_chunked_fused(*args[:4], lengths, args[4])
+    torch.cuda.synchronize()
+    _gla_check(args, lengths, o, st, torch.bfloat16, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gla_nan_past_lengths_never_reaches_the_state(cuda, dtype):
+    """NaN in every row past a length (q, k, v, log_a): the valid outputs
+    and the state equal the plain version's on the clean inputs, and a
+    row of length 0 returns its initial state."""
+    g = torch.Generator(device=cuda).manual_seed(25)
+    B, H, S = 3, 2, 200
+    lengths = torch.tensor((0, 70, 200), dtype=torch.int32, device=cuda)
+    args = _gla_inputs(g, B, H, S, 64, 128, torch.full(
+        (B,), S, dtype=torch.int32, device=cuda), dtype, cuda)
+    dead = torch.arange(S, device=cuda)[None, :] >= lengths[:, None]
+    dead = dead[:, None].expand(B, H, S)
+    poisoned = [x.clone() for x in args]
+    for x in poisoned[:4]:
+        x[dead] = float("nan")
+    o, st = gla_chunked_fused(*poisoned[:4], lengths, poisoned[4])
+    torch.cuda.synchronize()
+    _gla_check(args, lengths, o, st, dtype, cuda)
+    assert torch.equal(st[0], args[4][0])
+
+
+@pytest.mark.parametrize("op,fault", [
+    (op, fault) for op in ("gla_chunked", "gla_chunked_fused")
+    for fault in ("dk_264", "non_contiguous", "log_a_bf16", "state_bf16")
+] + [("gla_chunked_fused", "lengths_int64")])
+def test_gla_core_refuses_what_it_cannot_take(cuda, op, fault):
+    """A key dim past 256 (the core pads dk to 64, 128, 192 or 256), a
+    non-contiguous tensor, or lengths, decays or state of another type
+    are refused before any launch."""
+    g = torch.Generator(device=cuda).manual_seed(26)
+    B, H, S, dv = 1, 2, 64, 32
+    dk = 264 if fault == "dk_264" else 64
+    full = torch.full((B,), S, dtype=torch.int32, device=cuda)
+    q, k, v, la, s0 = _gla_inputs(g, B, H, S, dk, dv, full, torch.bfloat16,
+                                  cuda)
+    lengths = full.long() if fault == "lengths_int64" else full
+    if fault == "non_contiguous":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    if fault == "log_a_bf16":
+        la = la.to(torch.bfloat16)
+    if fault == "state_bf16":
+        s0 = s0.to(torch.bfloat16)
+    build.reset_launches()
+    with pytest.raises((ValueError, TypeError)):
+        if op == "gla_chunked":
+            gla_chunked(q, k, v, la, s0)
+        else:
+            gla_chunked_fused(q, k, v, la, lengths, s0)
+    assert not build.LAUNCHES
+
+
+@pytest.mark.parametrize("op", ["gla_chunked", "gla_chunked_fused"])
+def test_gla_core_rounds_like_float32(cuda, op, record_property):
+    """The core's own bf16 outputs against the float32 plain version's
+    rounding, at the inputs of
+    ``tests/test_torch_gla_plan.py::test_split_products_round_like_float32``
+    (zamba2's head, bf16 q, k, v, 8 heads over 512 tokens, decays in
+    multiples of 2^-10 so that every cumulative log decay is exact in
+    float32 and the kernel and the plain version share them): another bf16
+    value in at most the mirror's gate, 2e-4, of the outputs (recorded as
+    the test's ``flip_rate`` property).  This holds the part counts
+    compiled into ``csrc/gla_hopper.cuh``, where the CPU test holds only
+    their mirror."""
+    B, H, S, dk, dv = 1, 8, 512, 64, 128
+    r = np.random.default_rng(9)
+    q = r.standard_normal((B, H, S, dk)).astype(np.float32)
+    k = (r.standard_normal((B, H, S, dk)) * dk ** -0.5).astype(np.float32)
+    v = r.standard_normal((B, H, S, dv)).astype(np.float32)
+    la = (-2.0 * r.uniform(0.0, 1.0, (B, H, S)) ** 3).astype(np.float32)
+    la = np.round(la * 1024) / 1024
+    q, k, v = (torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+               for x in (q, k, v))
+    la = torch.from_numpy(la.astype(np.float32)).to(cuda)
+    s0 = torch.zeros((B, H, dk, dv), device=cuda)
+    if op == "gla_chunked":
+        o, _ = gla_chunked(q, k, v, la, s0)
+    else:
+        o, _ = gla_chunked_fused(q, k, v, la, torch.full(
+            (B,), S, dtype=torch.int32, device=cuda), s0)
+    torch.cuda.synchronize()
+    want, _ = gla_chunked_ref(q.float(), k.float(), v.float(), la, s0)
+    flips = float((o != want.to(torch.bfloat16)).float().mean())
+    record_property("flip_rate", flips)
+    assert flips <= 2e-4, flips
+
+
+def test_gla_core_parts_are_the_mirrors(cuda):
+    """The bf16 part counts compiled into ``csrc/gla_hopper.cuh`` are the
+    ``PARTS`` that the CPU mirror in ``kernels/gla.py`` emulates."""
+    assert kgla.kernel_parts() == kgla.PARTS
 
 
 def _unmasked_inputs(op, g, B, H, S, dk, dv, dtype, dev):
