@@ -21,9 +21,14 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      its table shape and at the shapes the main paths run, kimi's prefill
      chunk and the recipe's float32 microbatch; gated linear attention,
      rows 6 and 7, at its table shapes and at zamba2's prefill chunk and
-     training microbatch), after printing the ptxas registers and spills
-     of the bf16 decode core's, the delta core's and the GLA core's
-     instances;
+     training microbatch; the int8 wire encode, row 4, at its table shape
+     by CUDA events and profiler device time, and at three requests'
+     shapes read in place from their padded caches, mistral-nemo's and
+     zamba2's 12000-token k / v and kimi's 4096-token latents, against the
+     plain encode and the trim, cast and kernel chain before it, with each
+     one's time and peak memory), after printing the ptxas registers and
+     spills of the bf16 decode core's, the delta core's, the GLA core's
+     and the wire encode's instances;
      then each differentiable op (attention, gla and delta, with and
      without lengths) at the training paths' shapes and types: its kernel
      forward against the plain version's outputs, and its gradients
@@ -46,7 +51,9 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
          session whose later turn, paged, pins 4992 cached tokens (pool
          pages and the Mamba2 state snapshot) and prefills 600;
      random weights from a seed, each model's weights freed before the
-     next one's load;
+     next one's load; on each path the first offloaded request's in-situ
+     wire payload must equal the plain encode of its batch cache, byte for
+     byte;
   5. compare logits through the kernels with those through the plain
      versions (largest difference within 2 % of the largest |logit|): one
      prefill batch of kimi in bf16; one prefill batch and one paged decode
@@ -83,6 +90,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -417,6 +425,91 @@ def gla_case(torch, dev, g, tag):
 def _kernel_ms(torch, fn, reps: int):
     """Device ms of each kernel ``fn()`` launches, a run's mean over
     ``reps`` runs after a warm-up (``torch.profiler``)."""
+    return {k: ms for k, (ms, _) in _device_kernels(torch, fn, reps).items()}
+
+
+# row 4 at the main paths' request shapes: (tag, block, the wire leaves of
+# the bucket-padded cache as (R, B, S, ...), request, prompt tokens): the
+# k / v of a 12000-token mistral-nemo prompt (40 layers, chunked to 3 x
+# 4096), zamba2's six shared-block k / v of one, and kimi's MLA latents of
+# the second request of a padded batch of 4096-token prompts; bf16
+WIRE_REQUESTS = (
+    ("mistral_12000", "b0", {"k": (40, 1, 12288, 8, 128),
+                             "v": (40, 1, 12288, 8, 128)}, 0, 12000),
+    ("zamba2_12000", "b5", {"k": (6, 1, 12288, 32, 64),
+                            "v": (6, 1, 12288, 32, 64)}, 0, 12000),
+    ("kimi_4096", "b3", {"ckv": (1, 2, 4096, 472),
+                         "kpe": (1, 2, 4096, 64)}, 1, 4096),
+)
+
+
+def wire_request_cache(torch, dev, block, shapes, seed):
+    """A bucket-padded prefill cache holding only the wire leaves, bf16
+    normal draws x 3 from a seed."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {"groups": [{block: {
+        name: torch.randn(shape, generator=g, device=dev,
+                          dtype=torch.bfloat16) * 3.0
+        for name, shape in shapes.items()}}]}
+
+
+def wire_encoder():
+    """(name, encode(caches, idx, length) -> wire pytree) of the wire
+    encode this checkout's ``repro_torch`` runs for one offloaded request:
+    in place where it has ``encode_request_for_wire``, else the trim, then
+    ``quantize_cache_for_wire``."""
+    from repro_torch.models import kvcache
+    from repro_torch.serving.engine import trim_request_cache
+    enc = getattr(kvcache, "encode_request_for_wire", None)
+    if enc is not None:
+        return "in_place", lambda c, i, n: enc(c, i, n)[0]
+    return "trim_then_encode", lambda c, i, n: kvcache.quantize_cache_for_wire(
+        trim_request_cache(c, i, n))[0]
+
+
+def _trim_encode(caches, idx, length, encode):
+    """The trimmed cache with each wire leaf cast to float32 and encoded by
+    ``encode(x) -> (q, scale)``, the scale cast to the leaf's dtype."""
+    from repro_torch.models.kvcache import WIRE_LEAVES
+    from repro_torch.models.tree import tree_map_named
+    from repro_torch.serving.engine import trim_request_cache
+
+    def enc(name, leaf):
+        if name in WIRE_LEAVES and leaf.dtype.is_floating_point:
+            q, scale = encode(leaf.float())
+            return {"q": q, "scale": scale.to(leaf.dtype)}
+        return leaf
+
+    return tree_map_named(enc, trim_request_cache(caches, idx, length))
+
+
+def plain_wire(caches, idx, length):
+    """The plain encode of one request: trim, cast, ``quantize_int8_ref``."""
+    from repro_torch.kernels.quantize import quantize_int8_ref
+    return _trim_encode(caches, idx, length, quantize_int8_ref)
+
+
+def trim_cast_kernel_wire(caches, idx, length):
+    """The call chain before the in-place encode: trim, float32 cast, one
+    kernel call a leaf, scale cast."""
+    from repro_torch.kernels.quantize import quantize_int8_fused
+    return _trim_encode(caches, idx, length, quantize_int8_fused)
+
+
+def wire_identical(torch, a, b) -> bool:
+    """Two wire pytrees with the same paths, shapes, dtypes and bytes."""
+    from repro_torch.models.tree import tree_flatten_with_path
+    fa, fb = tree_flatten_with_path(a), tree_flatten_with_path(b)
+    if [p for p, _ in fa] != [p for p, _ in fb]:
+        return False
+    return all(x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+        x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for (_, x), (_, y) in zip(fa, fb))
+
+
+def _device_kernels(torch, fn, reps: int):
+    """{kernel: (device ms, launches)} of one ``fn()``, a mean over
+    ``reps`` runs after a warm-up (``torch.profiler``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -425,9 +518,150 @@ def _kernel_ms(torch, fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key.split("(")[0]: e.self_device_time_total / 1e3 / reps
+    return {e.key.split("(")[0]: (e.self_device_time_total / 1e3 / reps,
+                                  e.count / reps)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def time_wire(torch, fn, reps: int):
+    """One encode call: its ms by CUDA events, its device ms and kernel
+    launches by the profiler, each quantize pass's device ms, and its
+    peak memory above what was allocated before it."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    kernels = _device_kernels(torch, fn, reps)
+    return {"ms": _ms(fn, reps),
+            "device_ms": sum(ms for ms, _ in kernels.values()),
+            "device_launches": sum(n for _, n in kernels.values()),
+            "passes_ms": {k.split("::")[-1]: ms
+                          for k, (ms, _) in kernels.items()
+                          if "absmax_kernel" in k or "encode_kernel" in k},
+            "peak_gb": peak / 1e9}
+
+
+def profile_wire_encode(torch, dev):
+    """Row 4 on this checkout's ``repro_torch``, for timing two checkouts
+    in turns: the kernel at its table shape, x (4096, 472) float32 (CUDA
+    events and profiler device time), and the wire encode of each of
+    ``WIRE_REQUESTS`` that the checkout's serving path runs
+    (:func:`wire_encoder`), with its peak memory."""
+    from repro_torch.kernels.quantize import quantize_int8_fused
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((4096, 472), generator=g, device=dev) * 3.0
+    table = time_wire(torch, lambda: quantize_int8_fused(x), 50)
+    del x
+    how, encode = wire_encoder()
+    out = {"encode": how, "table_4096x472_f32": table}
+    for seed, (tag, block, shapes, idx, length) in enumerate(WIRE_REQUESTS):
+        caches = wire_request_cache(torch, dev, block, shapes, seed)
+        out[tag] = time_wire(torch, lambda: encode(caches, idx, length),
+                             5 if tag.startswith("mistral") else 20)
+        del caches
+    return out
+
+
+def check_quantize(torch, dev, g):
+    """Phase 3, row 4: the kernel against its plain version at its table
+    shape, x (4096, 472) float32, timed by CUDA events and by profiler
+    device time; then at each of ``WIRE_REQUESTS``, read in place from the
+    padded cache, against the plain encode (trim, cast,
+    ``quantize_int8_ref``) and the call chain before it (trim, cast, one
+    kernel call a leaf), each byte-identical, each timed with its peak
+    memory, beside the bound (the trimmed bf16 read once, the codes
+    written once)."""
+    from repro_torch.kernels.quantize import (quantize_int8_fused,
+                                              quantize_int8_ref)
+
+    x = (torch.randn((4096, 472), generator=g, device=dev) * 3.0)
+    qq, sc = quantize_int8_fused(x)
+    torch.cuda.synchronize()
+    qr, sr = quantize_int8_ref(x)
+    if not (torch.equal(qq, qr) and
+            sc.view(torch.int32).item() == sr.view(torch.int32).item()):
+        fail("quantize_int8_fused is not byte-identical to its plain version")
+    bnd = _bound(x.numel() * 5 + 4, 3 * x.numel(), F32_FLOP_S)
+    table = time_wire(torch, lambda: quantize_int8_fused(x), 50)
+    entry = dict(
+        source="src/repro_torch/csrc/quantize.cu",
+        replaces="src/repro/kernels/quantize.py:78",
+        max_abs_err=float((qq.float() - qr.float()).abs().max()),
+        atol_needed=0.0, ms=table["ms"], device_ms=table["device_ms"],
+        phases_ms=table["passes_ms"],
+        plain_ms=_ms(lambda: quantize_int8_ref(x), 20),
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+        shape="x (4096,472) f32 -> int8 + scale, byte-identical")
+    del x, qq, qr
+    _, encode = wire_encoder()
+    requests = {}
+    for seed, (tag, block, shapes, idx, length) in enumerate(WIRE_REQUESTS):
+        caches = wire_request_cache(torch, dev, block, shapes, seed)
+        got = encode(caches, idx, length)
+        torch.cuda.synchronize()
+        before = trim_cast_kernel_wire(caches, idx, length)
+        want = plain_wire(caches, idx, length)
+        if not (wire_identical(torch, got, want)
+                and wire_identical(torch, before, want)):
+            fail(f"the wire encode of {tag} is not byte-identical to the "
+                 "plain encode")
+        del got, before, want
+        n = sum(s[0] * min(length, s[2]) * math.prod(s[3:])
+                for s in shapes.values())
+        rb = _bound(n * 3 + 4 * len(shapes), 3 * n, F32_FLOP_S)
+        reps = 5 if tag.startswith("mistral") else 20
+        requests[tag] = {
+            "elements": n, "bound_ms": rb[0], "bound_by": rb[1],
+            "in_place": time_wire(
+                torch, lambda: encode(caches, idx, length), reps),
+            "trim_cast_kernel": time_wire(
+                torch, lambda: trim_cast_kernel_wire(caches, idx, length),
+                reps),
+            "byte_identical": True}
+        del caches
+        gc_cuda(torch)
+    entry["requests"] = requests
+    return entry
+
+
+class WireWitness:
+    """While active, the first offloaded request a deployment encodes for
+    the wire is held against the plain encode of the same batch cache
+    (trim, cast, ``quantize_int8_ref``), byte for byte; the check fails
+    the run if they differ."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.result = None
+
+    def __enter__(self):
+        from repro_torch.serving import deployment
+        self._mod, self._orig = deployment, deployment.encode_request_for_wire
+
+        def encode(caches, idx, length):
+            out = self._orig(caches, idx, length)
+            if self.result is None:
+                ok = wire_identical(self.torch, out[0],
+                                    plain_wire(caches, idx, length))
+                if not ok:
+                    fail(f"the in-situ wire payload of a {length}-token "
+                         "request differs from its plain encode")
+                self.result = {"tokens": length, "wire_bytes": out[1],
+                               "byte_identical": ok}
+            return out
+
+        deployment.encode_request_for_wire = encode
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.encode_request_for_wire = self._orig
 
 
 def ptxas_report(log_path, needle: str):
@@ -478,8 +712,6 @@ def check_kernels(torch, dev):
                                                  decode_attention_ref)
     from repro_torch.kernels.flash_attn import (flash_attention,
                                                 flash_attention_ref)
-    from repro_torch.kernels.quantize import (quantize_int8_fused,
-                                              quantize_int8_ref)
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
@@ -592,23 +824,8 @@ def check_kernels(torch, dev):
         "src/repro_torch/csrc/delta.cu", "src/repro/kernels/delta.py:218",
         DELTA_SHAPES, delta_case)
 
-    # quantize: one wire leaf (4096, 472) float32
-    x = randn(4096, 472, dtype=torch.float32, scale=3.0)
-    qq, sc = quantize_int8_fused(x)
-    torch.cuda.synchronize()
-    qr, sr = quantize_int8_ref(x)
-    if not (torch.equal(qq, qr) and
-            sc.view(torch.int32).item() == sr.view(torch.int32).item()):
-        fail("quantize_int8_fused is not byte-identical to its plain version")
-    bnd = _bound(x.numel() * 5 + 4, 3 * x.numel(), F32_FLOP_S)
-    out["quantize_int8_fused"] = dict(
-        source="src/repro_torch/csrc/quantize.cu",
-        replaces="src/repro/kernels/quantize.py:78",
-        max_abs_err=err(qq, qr), atol_needed=0.0,
-        ms=_ms(lambda: quantize_int8_fused(x), 50),
-        plain_ms=_ms(lambda: quantize_int8_ref(x), 20),
-        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
-        shape="x (4096,472) f32 -> int8 + scale, byte-identical")
+    # quantize (row 4): its table shape, then the main paths' requests
+    out["quantize_int8_fused"] = check_quantize(torch, dev, g)
 
     # gla, masked (row 7): zamba2's Mamba2 prefill, ragged lengths
     out["gla_chunked_fused"] = scan_entry(
@@ -890,7 +1107,10 @@ def main_path(torch, dev, cfg, params, *, paged: bool, session_len=5000):
     shares with its prefix cache, and the later turn resumes from the
     device pages of its prefix where the architecture allows (page-aligned
     state snapshots for linear mixers, so never on kimi's 5000-token
-    prompt, and on zamba2's 4992-token one)."""
+    prompt, and on zamba2's 4992-token one).  The first offloaded
+    request's wire payload, encoded in place from the batch cache, is held
+    byte for byte against the plain encode of the same cache
+    (:class:`WireWitness`)."""
     import numpy as np
 
     from repro_torch.kernels import build
@@ -918,13 +1138,16 @@ def main_path(torch, dev, cfg, params, *, paged: bool, session_len=5000):
     t0 = time.perf_counter()
     out = {}
     prefilled = []
-    for batch in batches:
-        before = dep.pd_prefill.tokens_prefilled
-        out.update(dep.submit_batch(batch))
-        prefilled.append(dep.pd_prefill.tokens_prefilled - before)
-    torch.cuda.synchronize()
+    with WireWitness(torch) as witness:
+        for batch in batches:
+            before = dep.pd_prefill.tokens_prefilled
+            out.update(dep.submit_batch(batch))
+            prefilled.append(dep.pd_prefill.tokens_prefilled - before)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
+    if witness.result is None:
+        fail("no offloaded request was encoded for the wire")
 
     reqs = [r for b in batches for r in b]
     for r in reqs:
@@ -958,6 +1181,7 @@ def main_path(torch, dev, cfg, params, *, paged: bool, session_len=5000):
         "pd_tokens_prefilled": prefilled,
         "wire_raw_bytes": wire_raw, "wire_quantized_bytes": wire_q,
         "wire_compression": ratio,
+        "wire_in_situ": witness.result,
         "truncations": m["truncations"],
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "wall_s": wall,
@@ -1497,8 +1721,10 @@ def hybrid_train(torch, dev):
 
 # what some kernel entries add to the keys every entry has: achieved rate,
 # share of the bound and the error at each checked shape (rows 1 and 9),
-# the GQA shape's numbers (row 8)
-_EXTRA_KEYS = ("tflops", "bound_share", "checked", "shapes")
+# the GQA shape's numbers (row 8), device time, each pass's and the
+# request shapes' numbers (row 4)
+_EXTRA_KEYS = ("tflops", "bound_share", "checked", "shapes", "device_ms",
+               "phases_ms", "requests")
 
 
 def gc_cuda(torch):
@@ -1557,12 +1783,13 @@ def main():
     lib = build.build()
     build.library()
     print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
-    # registers and spills of the bf16 decode core's, the delta core's and
-    # the GLA core's instances
+    # registers and spills of the bf16 decode core's, the delta core's, the
+    # GLA core's and the wire encode's instances
     decode_ptxas = ptxas_report(str(lib) + ".log", "decode_hopper::")
     delta_ptxas = ptxas_report(str(lib) + ".log", "delta_hopper::")
     gla_ptxas = ptxas_report(str(lib) + ".log", "gla_hopper::")
-    for e in decode_ptxas + delta_ptxas + gla_ptxas:
+    quantize_ptxas = ptxas_report(str(lib) + ".log", "quantize_wire::")
+    for e in decode_ptxas + delta_ptxas + gla_ptxas + quantize_ptxas:
         print(f"ptxas {e['name'].split('>(')[0]}>: {e.get('registers')} "
               f"registers, {e.get('spill_stores')} / {e.get('spill_loads')} "
               f"bytes spilled (stores / loads)", flush=True)
@@ -1674,6 +1901,7 @@ def main():
     paths["decode_ptxas"] = decode_ptxas
     paths["delta_ptxas"] = delta_ptxas
     paths["gla_ptxas"] = gla_ptxas
+    paths["quantize_ptxas"] = quantize_ptxas
 
     entries = [dict(name=name, route="cuda", source=k["source"],
                     replaces=k["replaces"], launches=launches.get(name, 0),

@@ -42,7 +42,7 @@ _SIGNATURES = {
     "prfaas_gla_fused": [_P] * 9 + [_L] + [_I] * 6 + [_P],
     "prfaas_delta_chunked": [_P] * 9 + [_L] + [_I] * 6 + [_P],
     "prfaas_gla_chunked": [_P] * 8 + [_L] + [_I] * 6 + [_P],
-    "prfaas_quantize_int8": [_P, _P, _P, _P, _L, _I, _P],
+    "prfaas_quantize_wire": [_P, _I, _P, _I, _P],
     "prfaas_paged_decode_attention": [_P] * 8 + [_I] * 10
                                      + [_F, _I, _I, _I, _P],
     "prfaas_paged_prefill_attention": [_P] * 7 + [_I] * 10 + [_F, _I, _P],

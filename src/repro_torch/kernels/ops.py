@@ -222,6 +222,16 @@ def quantize_wire(x):
     return _quant.quantize_int8_fused(x.contiguous())
 
 
+def quantize_wire_leaves(leaves):
+    """Per-tensor symmetric int8 of each :class:`quantize.WireLeaf`, read
+    in place -> ``[(q int8, scale float32 0-d, scale in the leaf's dtype
+    0-d)]``, byte-identical on both paths; on CUDA one launch pair for
+    all of them."""
+    if leaves and leaves[0].x.device.type == "cpu":
+        return _quant.quantize_int8_wire_ref(leaves)
+    return _quant.quantize_int8_wire(leaves)
+
+
 # single-step recurrent updates: plain PyTorch on every device, as in the
 # reference (which has no kernel for them)
 delta_step = _delta.delta_step_ref

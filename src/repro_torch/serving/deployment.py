@@ -9,10 +9,11 @@ caches, the global KV manager and the inter-DC link topology are the
 reference's control-plane code (copied into ``repro_torch.core``):
 ``Router.route`` picks PrfaaS or the home region per request from the
 prefix matches and the link telemetry, and each finished prefill unit
-passes through ``_unit_done``, which trims the cache to the prompt,
-int8-quantizes it for the wire when ``wire_compression`` is on (through the
-quantize kernel on the card), submits the flow on the link, dequantizes for
-admission and accounts TTFT.
+passes through ``_unit_done``, which trims the cache to the prompt or,
+for an offloaded request with ``wire_compression`` on, int8-encodes its
+K/V/latent leaves for the wire straight from the batch cache (one launch
+pair of the quantize kernel on the card), submits the flow on the link,
+dequantizes for admission and accounts TTFT.
 
 Device prefix reuse (``paged_kv=True``): each region's ``DecodeEngine``
 runs the paged layout over one ``BlockPool`` it shares with the region's
@@ -47,7 +48,8 @@ from repro_torch.core.transfer import LinkTopology, star_pairs
 from repro_torch.core.workload import Workload
 from repro_torch.models import Model
 from repro_torch.models.kvcache import (cache_num_bytes,
-                                        dequantize_cache_from_wire, kv_bytes,
+                                        dequantize_cache_from_wire,
+                                        encode_request_for_wire, kv_bytes,
                                         quantize_cache_for_wire)
 from repro_torch.models.paged import paged_layout, zero_request_payload
 from repro_torch.serving.api import PagePin, Request, Response
@@ -217,7 +219,8 @@ class CrossDCDeployment:
     def _unit_done(self, engine: PrefillEngine, rs: List[Request], lengths,
                    first, caches, wall: float) -> list:
         """Per-unit accounting the region schedulers call when a prefill
-        unit finishes: trim to true lengths, quantize + submit wire flows,
+        unit finishes: trim to true lengths (offloaded with wire
+        compression: encode in place instead), submit wire flows,
         record prefix-cache entries, compute transfer exposure and TTFT.
         Returns the decode admit entries."""
         self.topology.advance(self.virtual_now)
@@ -226,14 +229,19 @@ class CrossDCDeployment:
         for i, r in enumerate(rs):
             cluster = r.decision.target
             r.prefill_s = wall
-            payload = trim_request_cache(caches, i, len(r.tokens))
-            r.kv_bytes_raw = cache_num_bytes(payload)
+            wire = cluster == PRFAAS and self.cfg.wire_compression
+            if wire:
+                # the quantized pytree is what crosses the link, encoded
+                # from the batch cache in place
+                payload, nbytes, r.kv_bytes_raw = encode_request_for_wire(
+                    caches, i, len(r.tokens))
+            else:
+                payload = trim_request_cache(caches, i, len(r.tokens))
+                r.kv_bytes_raw = cache_num_bytes(payload)
             r.transfer_s = 0.0
             fl = []
             if cluster == PRFAAS:
-                if self.cfg.wire_compression:
-                    # the quantized pytree is what crosses the link
-                    payload, nbytes = quantize_cache_for_wire(payload)
+                if wire:
                     self._wire_raw += r.kv_bytes_raw
                     self._wire_quant += nbytes
                 else:

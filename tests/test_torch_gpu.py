@@ -35,6 +35,7 @@ from repro_torch.kernels.paged_decode_attn import (
     paged_decode_attention, paged_decode_attention_ref)
 from repro_torch.kernels.paged_prefill_attn import (
     paged_prefill_attention, paged_prefill_attention_ref)
+from repro_torch.kernels import quantize as kq
 from repro_torch.kernels.quantize import quantize_int8_fused, quantize_int8_ref
 
 pytestmark = pytest.mark.gpu
@@ -577,6 +578,137 @@ def test_quantize_byte_identical(cuda, shape):
     q2, s2 = quantize_int8_ref(x)
     assert torch.equal(q, q2)
     assert s.view(torch.int32).item() == s2.view(torch.int32).item()
+
+
+def _same_bytes(a, b):
+    """Equal shapes, dtypes and bytes (a NaN equals the same NaN)."""
+    return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def _wire_leaves(g, dev, dtype, case):
+    """The leaves of one request as the serving paths read them in place
+    from their bucket-padded caches (widths at full size, depth and
+    bucket cut)."""
+    if case == "mistral":              # 40 layers of GQA k / v, 8 x 128
+        xs = [_randn(g, (40, 2, 512, 8, 128), dtype, dev, 3.0)
+              for _ in range(2)]
+        return [kq.request_leaf(x, 1, 301) for x in xs]
+    if case == "kimi":                 # MLA ckv / kpe, two requests each
+        ckv = _randn(g, (1, 2, 4096, 472), dtype, dev, 3.0)
+        kpe = _randn(g, (1, 2, 4096, 64), dtype, dev, 3.0)
+        return [kq.request_leaf(ckv, 1, 4096), kq.request_leaf(kpe, 1, 4096),
+                kq.request_leaf(ckv, 0, 2500), kq.request_leaf(kpe, 0, 2500)]
+    # zamba2: the shared block's k / v, six invocations each
+    xs = [_randn(g, (6, 2, 1024, 32, 64), dtype, dev, 3.0) for _ in range(2)]
+    return [kq.request_leaf(x, 0, 700) for x in xs]
+
+
+def _check_wire(leaves):
+    build.reset_launches()
+    got = kq.quantize_int8_wire(leaves)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"quantize_int8_fused": 1}
+    want = kq.quantize_int8_wire_ref(leaves)
+    for (q, s, sd), (q2, s2, sd2) in zip(got, want):
+        assert _same_bytes(q, q2)
+        assert _same_bytes(s, s2) and _same_bytes(sd, sd2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["mistral", "kimi", "zamba2"])
+def test_wire_encode_in_place_byte_identical(cuda, case, dtype):
+    """A request's leaves read in place from the padded cache, all in one
+    launch pair: codes and both scales byte-identical to the plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    _check_wire(_wire_leaves(g, cuda, dtype, case))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wire_encode_odd_sizes_and_zero_leaf(cuda, dtype):
+    """Whole leaves of 7 and (3, 333, 17) elements, an all-zero leaf
+    (scale 1e-30 / 127), rows of width 257 and 80 from a view that starts
+    off the 16-byte grid, in one launch pair."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    base = _randn(g, (3 * 2 * 50 * 257 + 3,), dtype, cuda, 3.0)
+    odd = base[3:].view(3, 2, 50, 257)
+    assert odd.data_ptr() % 16 != 0
+    h80 = _randn(g, (2, 3, 40, 2, 40), dtype, cuda, 3.0)
+    leaves = [kq.whole_leaf(_randn(g, (7,), dtype, cuda, 3.0)),
+              kq.whole_leaf(_randn(g, (3, 333, 17), dtype, cuda, 3.0)),
+              kq.whole_leaf(torch.zeros((5, 64), dtype=dtype, device=cuda)),
+              kq.request_leaf(odd, 1, 37), kq.request_leaf(odd, 0, 50),
+              kq.request_leaf(h80, 2, 13)]
+    _check_wire(leaves)
+    (q, s, _), = kq.quantize_int8_wire([leaves[2]])
+    assert not q.any() and float(s) == pytest.approx(1e-30 / 127)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+def test_quantize_scale_keeps_nan_and_inf(cuda, bad, dtype):
+    """A leaf holding one NaN or one inf: the scale (float32, and in the
+    leaf's dtype) has the plain version's bytes, as ``torch.max`` and the
+    reference's ``jnp.max`` propagate the value; the codes agree wherever
+    x / scale is finite."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = _randn(g, (4096, 472), dtype, cuda, 3.0)
+    x[1234, 77] = bad
+    q, s = quantize_int8_fused(x)
+    torch.cuda.synchronize()
+    q2, s2 = quantize_int8_ref(x.float())
+    assert _same_bytes(s, s2)
+    finite = torch.isfinite(x.float() / s2)
+    assert torch.equal(q[finite], q2[finite])
+    (_, _, sd), = kq.quantize_int8_wire([kq.whole_leaf(x)])
+    assert _same_bytes(sd, s2.to(dtype))
+
+
+def test_wire_encode_refuses_other_dtypes(cuda):
+    x = torch.zeros((4, 64), dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError):
+        kq.quantize_int8_wire([kq.whole_leaf(x)])
+
+
+@pytest.mark.parametrize("arch", ["kimi-linear-1t", "zamba2-1.2b"])
+def test_request_encode_on_cuda_equals_cpu(cuda, arch):
+    """``encode_request_for_wire`` of a smoke prefill cache on the card (one
+    launch pair) equals the same cache's encode on the CPU (the plain
+    version through a trim), byte for byte."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    from repro_torch.models.kvcache import encode_request_for_wire
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import PrefillEngine
+
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    toks = np.random.default_rng(8).integers(0, cfg.vocab_size, (3, 40))
+    _, caches, _ = PrefillEngine(Model(cfg), params, min_bucket=32).prefill(
+        toks.astype(np.int32), np.array([40, 23, 1], np.int32))
+    cpu = [t.cpu() for t in tree_leaves(caches)]
+    it = iter(cpu)
+
+    def rebuild(node):
+        if isinstance(node, dict):
+            return {k: rebuild(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [rebuild(v) for v in node]
+        return next(it)
+
+    caches_cpu = rebuild(caches)
+    for idx, length in ((0, 40), (1, 23), (2, 1)):
+        build.reset_launches()
+        wire, nbytes, raw = encode_request_for_wire(caches, idx, length)
+        torch.cuda.synchronize()
+        assert dict(build.LAUNCHES) == {"quantize_int8_fused": 1}
+        want, wbytes, wraw = encode_request_for_wire(caches_cpu, idx, length)
+        assert (nbytes, raw) == (wbytes, wraw)
+        for a, b in zip(tree_leaves(wire), tree_leaves(want)):
+            assert _same_bytes(a.cpu(), b)
 
 
 def test_ops_route_cuda_tensors_to_kernels(cuda):
