@@ -34,10 +34,14 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      forward against the plain version's outputs, and its gradients
      against autograd through the plain version (the same plain backward
      on both sides, so a check of the wiring);
-  4. drive the main paths, each with every kernel launch counted from 0,
-     through ``CrossDCDeployment`` serving prompts of 100-12000 tokens
-     through both routes with int8 wire compression and chunked prefill,
-     then a later turn of one session:
+  4. drive the main paths, each warmed first (``PrefillEngine.warmup`` of
+     the traffic's shapes with each region's decode engine: every prefill
+     bucket and chunk count, the paged admission, and the capture of the
+     decode block as a CUDA graph, which every later block replays), then
+     with every kernel launch counted from 0 (a replay adds the launches
+     its capture recorded), through ``CrossDCDeployment`` serving prompts
+     of 100-12000 tokens through both routes with int8 wire compression
+     and chunked prefill, then a later turn of one session:
        * ``kimi-linear-1t`` at its published widths (depth cut to one
          [KDA, KDA, KDA, MLA] unit and the MoE to 32 of its 352 experts, so
          the bf16 weights, ~17.8 GB, fit the card), with the dense KV
@@ -53,7 +57,10 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      random weights from a seed, each model's weights freed before the
      next one's load; on each path the first offloaded request's in-situ
      wire payload must equal the plain encode of its batch cache, byte for
-     byte;
+     byte, and each decode engine must have captured its block once; then
+     on each of the five paths two decode engines, the graph replayed and
+     the eager block (``graphs=False``), take the same eight prefilled
+     requests and must emit the same tokens (``check_replay``);
   5. compare logits through the kernels with those through the plain
      versions (largest difference within 2 % of the largest |logit|): one
      prefill batch of kimi in bf16; one prefill batch and one paged decode
@@ -64,7 +71,8 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      further from the float32 plain logits than 1.5x the plain bf16
      logits' distance; time the MLA paged decode's whole-pool [ckv, kpe]
      concatenation against a decode step; and profile one paged decode
-     block of mistral-nemo-12b and of zamba2-1.2b, and one 4096-token
+     block of mistral-nemo-12b and of zamba2-1.2b, replayed as a graph and
+     eager, and one 4096-token
      prefill of kimi, mistral-nemo and zamba2 (``torch.profiler``: device
      busy time, the largest kernels and the flash, decode, delta and GLA
      kernels' shares);
@@ -1134,6 +1142,21 @@ def main_path(torch, dev, cfg, params, *, paged: bool, session_len=5000):
                [Request(rid=len(prompts), tokens=ext, max_new_tokens=16)]]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # the reference's warm-ups for the traffic's shapes: every prefill
+    # bucket and chunk count, the paged admission and, on each region's
+    # decode engine, the capture of its block
+    t0 = time.perf_counter()
+    warm_lens = lens + [len(ext)]
+    dep.prfaas.warmup([1], warm_lens)
+    for name in dep.pd_names:
+        dep.pd_prefill.warmup([1], warm_lens, decode=dep.decoders[name])
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    compiles = {"prefill": dep.pd_prefill.compiles,
+                "admit": {n: d.admit_compiles
+                          for n, d in dep.decoders.items()}}
+    if any(d.block_compiles != 1 for d in dep.decoders.values()):
+        fail("a decode engine's block was not captured by its warm-up")
     build.reset_launches()
     t0 = time.perf_counter()
     out = {}
@@ -1149,6 +1172,9 @@ def main_path(torch, dev, cfg, params, *, paged: bool, session_len=5000):
     if witness.result is None:
         fail("no offloaded request was encoded for the wire")
 
+    blocks = {n: d.block_compiles for n, d in dep.decoders.items()}
+    if set(blocks.values()) != {1}:
+        fail(f"decode blocks captured again during traffic: {blocks}")
     reqs = [r for b in batches for r in b]
     for r in reqs:
         resp = out.get(r.rid)
@@ -1183,7 +1209,16 @@ def main_path(torch, dev, cfg, params, *, paged: bool, session_len=5000):
         "wire_compression": ratio,
         "wire_in_situ": witness.result,
         "truncations": m["truncations"],
+        # from the warm-ups on: the graphs' pools are reserved, not
+        # allocated, once their capture ends
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+        "warmup_s": warmup_s,
+        "block_compiles": blocks,
+        "compiles_after_warmup": compiles,
+        "compiles_after_traffic": {
+            "prefill": dep.pd_prefill.compiles,
+            "admit": {n: d.admit_compiles for n, d in dep.decoders.items()}},
         "wall_s": wall,
         # host seconds inside the schedulers' ticks, and of those inside
         # decode blocks (the rest is prefill, admission and accounting)
@@ -1421,7 +1456,9 @@ def _profiled(torch, fn):
 
 def profile_decode_block(torch, dev, cfg, params):
     """Where a paged decode block's time goes: one block of 8 slots at 4000
-    tokens each (``_profiled``)."""
+    tokens each (``_profiled``), replayed as the engine's CUDA graph and,
+    on a second engine of the same admissions, run eagerly
+    (``graphs=False``)."""
     import numpy as np
 
     from repro_torch.core.blockpool import BlockPool
@@ -1430,14 +1467,79 @@ def profile_decode_block(torch, dev, cfg, params):
     from repro_torch.serving import DecodeEngine, Request
 
     L, slots = 4000, 8
-    dec = DecodeEngine(Model(cfg), params, slots, 16384, paged=True,
-                       pool=BlockPool(4096, 16), page_tokens=16)
-    payload = zero_request_payload(cfg, L, dev)
-    dec.admit_many([(Request(rid=i, tokens=np.zeros((L,), np.int32),
-                             max_new_tokens=64), 0, payload, L)
-                    for i in range(slots)])
-    return {"slots": slots, "tokens_per_slot": L, "steps": dec.block_size,
-            **_profiled(torch, dec.step_block)}
+    out = {"slots": slots, "tokens_per_slot": L}
+    for tag, graphs in (("graph", True), ("eager", False)):
+        dec = DecodeEngine(Model(cfg), params, slots, 16384, paged=True,
+                           pool=BlockPool(4096, 16), page_tokens=16,
+                           graphs=graphs)
+        payload = zero_request_payload(cfg, L, dev)
+        dec.admit_many([(Request(rid=i, tokens=np.zeros((L,), np.int32),
+                                 max_new_tokens=64), 0, payload, L)
+                        for i in range(slots)])
+        del payload
+        out["steps"] = dec.block_size
+        out[tag] = _profiled(torch, dec.step_block)
+        out[tag]["block_compiles"] = dec.block_compiles
+        del dec
+        gc_cuda(torch)
+    out["wall_eager_over_graph"] = (out["eager"]["wall_ms"]
+                                    / out["graph"]["wall_ms"])
+    return out
+
+
+def check_replay(torch, dev, cfg, params, *, paged: bool):
+    """The captured block against the eager one on a served path: two
+    decode engines (``graphs`` on and off) of 8 slots get the same
+    admissions, eight prompts of 100-2000 tokens prefilled once from a
+    seed with budgets of 20-27 tokens, and drain them; every token must be
+    the same, and the graph engine must capture once (at its
+    ``warmup_block``).  Returns each engine's decode wall and the graph's
+    launches a replay."""
+    import numpy as np
+
+    from repro_torch.models import Model
+    from repro_torch.serving import DecodeEngine, PrefillEngine, Request
+    from repro_torch.serving.engine import trim_request_cache
+
+    model = Model(cfg)
+    rng = np.random.default_rng(4)
+    lens = rng.integers(100, 2000, 8).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab_size, (8, int(lens.max()))
+                        ).astype(np.int32)
+    first, caches, _ = PrefillEngine(model, params, min_bucket=128,
+                                     max_bucket=4096).prefill(toks, lens)
+    entries = [(Request(rid=i, tokens=toks[i, :L], max_new_tokens=20 + i),
+                int(first[i]), trim_request_cache(caches, i, int(L)), int(L))
+               for i, L in enumerate(lens)]
+    del caches
+    res, outs = {}, {}
+    for tag, graphs in (("graph", True), ("eager", False)):
+        dec = DecodeEngine(model, params, 8, 4096, block_size=8, paged=paged,
+                           page_tokens=16, graphs=graphs)
+        dec.warmup_block()
+        if dec.admit_many(entries) != len(entries):
+            fail(f"{cfg.name}: replay check admitted too few requests")
+        torch.cuda.synchronize()
+        blocks = dec.run_until_drained()
+        torch.cuda.synchronize()
+        outs[tag] = {rid: r.output_tokens for rid, r in dec.outputs.items()}
+        res[f"{tag}_decode_wall_s"] = dec.decode_wall_s
+        res[f"{tag}_block_compiles"] = dec.block_compiles
+        if graphs:
+            res["blocks"] = blocks
+            res["launches_per_replay"] = dict(dec._graph_launches or {})
+        del dec
+        gc_cuda(torch)
+    if res["graph_block_compiles"] != 1:
+        fail(f"{cfg.name}: the decode block was captured "
+             f"{res['graph_block_compiles']} times")
+    same = sum(outs["graph"][r] == outs["eager"][r] for r in outs["eager"])
+    res["requests"], res["requests_identical"] = len(outs["eager"]), same
+    if same != len(outs["eager"]) or set(outs["graph"]) != set(outs["eager"]):
+        fail(f"{cfg.name} (paged={paged}): replayed tokens differ from the "
+             f"eager block's on {len(outs['eager']) - same} requests")
+    res["tokens"] = sum(len(t) for t in outs["graph"].values())
+    return res
 
 
 def profile_prefill(torch, dev, cfg, params):
@@ -1516,6 +1618,9 @@ def zamba2_paths(torch, dev, paths, launches):
             launches[name] = launches.get(name, 0) + n
         print(f"{tag}: {summary['wall_s']:.2f} s wall, launches {counts}",
               flush=True)
+        paths[f"{tag}_replay"] = check_replay(torch, dev, cfg, params,
+                                              paged=paged)
+        print(f"{tag}_replay: {paths[f'{tag}_replay']}", flush=True)
     paths["zamba2_decode_profile"] = profile_decode_block(torch, dev, cfg,
                                                           params)
     paths["zamba2_prefill_profile"] = profile_prefill(torch, dev, cfg,
@@ -1826,6 +1931,9 @@ def main():
             launches[name] = launches.get(name, 0) + n
         print(f"{tag}: {summary['wall_s']:.2f} s wall, launches {counts}",
               flush=True)
+        paths[f"{tag}_replay"] = check_replay(torch, dev, cfg, params,
+                                              paged=paged)
+        print(f"{tag}_replay: {paths[f'{tag}_replay']}", flush=True)
     paths["kimi_logits"] = compare_logits(torch, dev, cfg, params)
     paths["kimi_prefill_profile"] = profile_prefill(torch, dev, cfg, params)
     paths["kimi_mla_concat"] = mla_concat_cost(torch, dev, cfg, params)
@@ -1849,6 +1957,10 @@ def main():
         fail(f"the later turn prefilled {summary['pd_tokens_prefilled'][-1]} "
              f"tokens, not its {ext - c}-token suffix")
     paths["mistral_paged"] = summary
+    paths["mistral_paged_replay"] = check_replay(torch, dev, cfg, params,
+                                                 paged=True)
+    print(f"mistral_paged_replay: {paths['mistral_paged_replay']}",
+          flush=True)
     paths["mistral_decode_profile"] = profile_decode_block(torch, dev, cfg,
                                                            params)
     paths["mistral_prefill_profile"] = profile_prefill(torch, dev, cfg,

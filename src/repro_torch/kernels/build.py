@@ -13,6 +13,7 @@ raises when there is no ``nvcc`` (the CPU tests never call it).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,7 +31,8 @@ SOURCES = ("flash_attn.cu", "decode_attn.cu", "delta.cu", "quantize.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# launches of each kernel wrapper; a wrapper adds one where it launches
+# launches of each kernel wrapper; a wrapper adds one where it launches,
+# and a CUDA graph's replay adds the launches its capture recorded
 LAUNCHES: collections.Counter = collections.Counter()
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -53,6 +55,23 @@ _lib = None
 
 def reset_launches():
     LAUNCHES.clear()
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph capture: the wrappers run and count, but a
+    capture launches nothing, so their counts go into the yielded Counter
+    and ``LAUNCHES`` is left as it was.  Each replay then adds the record
+    once."""
+    before = collections.Counter(LAUNCHES)
+    rec: collections.Counter = collections.Counter()
+    try:
+        yield rec
+    finally:
+        rec.update(LAUNCHES - before)
+        LAUNCHES.clear()
+        LAUNCHES.update(before)
+
 
 
 def _nvcc() -> str:

@@ -17,7 +17,8 @@ of the caches are shared page pools instead, addressed through per-slot
 block tables.
 
 The serving path's MoE is always the exact dropless form (the reference's
-inference default).  Architectures whose blocks the port does not serve
+inference default): a sorted loop over experts in prefill, every expert at
+once in decode, where it must not sync the host.  Architectures whose blocks the port does not serve
 yet (encoders, image prefixes, cross-attention, sliding windows, mixers
 other than KDA/GDN, Mamba2, GQA and MLA) raise ``NotImplementedError`` at
 construction.  Training (``train_loss``) builds no caches; it runs dense
@@ -33,7 +34,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import AttentionSpec, BlockSpec, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import linear_attention as lin_mod
-from repro_torch.models.layers import apply_ffn, apply_moe_dropless, rms_norm
+from repro_torch.models.layers import (apply_ffn, apply_moe_decode,
+                                       apply_moe_dropless, rms_norm)
 from repro_torch.models.tree import tree_map, tree_map_named
 
 
@@ -122,14 +124,17 @@ class Model:
         self.remat = remat
 
     # ------------------------------------------------------------ blocks
-    def _ffn(self, spec: BlockSpec, p, x):
+    def _ffn(self, spec: BlockSpec, p, x, decode: bool = False):
+        """``decode``: the MoE takes its capture-safe form
+        (:func:`apply_moe_decode`)."""
         f = spec.ffn
         if f.kind == "dense":
             return x + apply_ffn(p["ffn"], rms_norm(x, p["ln2"],
                                                      self.cfg.norm_eps), f)
         if f.kind == "moe":
-            return x + apply_moe_dropless(
-                p["ffn"], rms_norm(x, p["ln2"], self.cfg.norm_eps), f)
+            moe = apply_moe_decode if decode else apply_moe_dropless
+            return x + moe(p["ffn"], rms_norm(x, p["ln2"], self.cfg.norm_eps),
+                           f)
         return x
 
     def _apply_block(self, spec: BlockSpec, p, x, positions, lengths,
@@ -169,7 +174,7 @@ class Model:
                                              use_kernels=self.use_kernels)
         else:
             y, c = lin_mod.linear_decode(p["mixer"], h, m, cache)
-        return self._ffn(spec, p, x + y), c
+        return self._ffn(spec, p, x + y, decode=True), c
 
     def _run_groups(self, params, x, positions, lengths, caches=None):
         """Every group's repeats in order.  Returns (x, stacked caches)."""

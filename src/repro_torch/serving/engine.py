@@ -4,9 +4,11 @@ decode and the region scheduler that interleaves them.
 Counterpart of ``src/repro/serving/engine.py`` for greedy decode over the
 dense or the paged KV layout (speculative decode and sampling are later
 slices and raise ``NotImplementedError``).  The reference compiles one
-program per shape; PyTorch runs eagerly, so the bucket grid here bounds
-padding and keeps tokens identical to the reference rather than bounding
-compiles.
+program per shape; PyTorch runs prefill eagerly, so the bucket grid there
+bounds padding and keeps tokens identical to the reference, and
+``compiles`` counts the distinct shapes run.  The reference's jitted
+decode block (a ``lax.scan``) is, on the card, one CUDA graph per
+``DecodeEngine``, captured once and replayed every block.
 
   * ``PrefillEngine``: pow2 length x batch buckets with exact per-row
     ``lengths``; prompts past ``max_bucket`` run as ``ChunkedPrefill``
@@ -18,9 +20,12 @@ compiles.
     requests into free slots (paged: only their pages, a pinned prefix
     mapped instead of rewritten), ``step_block`` runs ``block_size``
     decode steps with the argmax fed back on the device and one host sync
-    per block.
+    per block (on the card a replay of the captured graph), ``step`` one
+    eager token.  ``warmup_admission`` / ``warmup_block`` (called by
+    ``PrefillEngine.warmup``) run admission and the block once before
+    traffic; the latter is the capture.
   * ``RegionScheduler``: admit ready requests -> one prefill unit -> one
-    decode block, per tick.
+    decode block, per tick; ``stats()`` as the reference's.
 """
 from __future__ import annotations
 
@@ -32,8 +37,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.blockpool import PREFIX, BlockPool
+from repro_torch.kernels import build as _build
 from repro_torch.kernels.paged_prefill_attn import require_bf16_pages
 from repro_torch.models import Model, prepare_decode_caches
+from repro_torch.models.kvcache import quantize_cache_for_wire
 from repro_torch.models import paged as paged_mod
 from repro_torch.models.tree import tree_map
 from repro_torch.serving.api import Request, Response
@@ -70,6 +77,39 @@ class PrefillEngine:
             raise ValueError("max_bucket must be a power of two")
         self.max_bucket = max_bucket
         self.tokens_prefilled = 0        # valid prompt tokens computed
+        # the shapes run, keyed as the reference keys its jit programs
+        self._shape_keys = set()
+
+    @property
+    def compiles(self) -> int:
+        """Distinct prefill shapes run: full prefills (batch, length
+        bucket), chunk steps (batch, chunk, index, offset), the carry and
+        the epilogue.  The reference compiles one program for each."""
+        return len(self._shape_keys)
+
+    def warmup(self, batch_sizes: Sequence[int], lengths: Sequence[int],
+               decode: Optional["DecodeEngine"] = None):
+        """Run every (batch bucket, length bucket) pair once, and for a
+        length past ``max_bucket`` its ``ceil(L / max_bucket)`` chunks
+        (which covers every shorter chunked prompt), as the reference's
+        warm-up compiles them.  Given the region's ``decode`` engine, then
+        warm its paged admission (``warmup_admission``) and its block
+        (``warmup_block``, on the card the graph's capture)."""
+        shapes = set()
+        for n in lengths:
+            if self.is_chunked(n):
+                C = self.max_bucket
+                shapes.add(-(-int(n) // C) * C)
+            else:
+                shapes.add(self.bucket_for(n))
+        for b in sorted({next_pow2(b) for b in batch_sizes}):
+            for n in sorted(shapes):
+                self.prefill(np.zeros((b, n), np.int32),
+                             np.full((b,), n, np.int32))
+        if decode is not None and decode.paged:
+            decode.warmup_admission(batch_sizes, lengths)
+        if decode is not None:
+            decode.warmup_block()
 
     def bucket_for(self, max_len: int) -> int:
         return next_pow2(max_len, self.min_bucket)
@@ -115,6 +155,7 @@ class PrefillEngine:
                 cp.step()
             first, caches = cp.finish()
         else:
+            self._shape_keys.add(("prefill",) + toks.shape)
             with torch.no_grad():
                 logits, caches = self.model.prefill(
                     self.params, {"tokens": self._tensor(toks).long(),
@@ -195,6 +236,9 @@ class ChunkedPrefill:
         t0 = time.perf_counter()
         eng, C, i = self.eng, self.C, self.i
         Bb = self.toks.shape[0]
+        eng._shape_keys.add(("chunk", Bb, C, i, self.off)
+                            + (("paged",) if self.table_direct else ()))
+        eng._shape_keys.add(("carry", Bb, C))
         pos = np.repeat(np.arange(self.off + i * C, self.off + (i + 1) * C,
                                   dtype=np.int32)[None], Bb, axis=0)
         chunk_lens = np.clip(self.lens - i * C, 0, C).astype(np.int32)
@@ -228,6 +272,7 @@ class ChunkedPrefill:
                                f"/{self.n_chunks}; not finished")
         t0 = time.perf_counter()
         Bb = self.toks.shape[0]
+        self.eng._shape_keys.add(("finish", Bb))
         with torch.no_grad():
             logits = self.eng.model.last_logits(
                 self.eng.params, self._last,
@@ -245,6 +290,15 @@ class DecodeEngine:
     """Slot-based continuous-batching decode, greedy, over dense per-slot
     caches or (``paged=True``) shared page pools.
 
+    On the card the decode block is one CUDA graph, captured once (by
+    ``warmup_block``, or after the first block, which runs eagerly as the
+    capture's warm-up) and replayed by every later block: it reads its
+    inputs from static device buffers that each block fills from the host
+    arrays, and reads and writes the engine's own caches in place.  A
+    failed capture raises.  ``graphs=False`` runs the block eagerly (for
+    comparisons in tests and ``chip_smoke.py``, as ``use_kernels=False``);
+    so does a CPU engine.
+
     Paged: the attention leaves are pools of ``pool``'s pages (default: as
     many as the dense layout's ``num_slots * capacity`` tokens) plus one
     sink page; each slot maps its logical pages to pool pages through its
@@ -257,7 +311,8 @@ class DecodeEngine:
     def __init__(self, model: Model, params, num_slots: int, capacity: int,
                  block_size: int = 8, *, temperature: float = 0.0,
                  paged: bool = False, pool: Optional[BlockPool] = None,
-                 page_tokens: int = 16, spec_k: int = 0):
+                 page_tokens: int = 16, spec_k: int = 0,
+                 graphs: bool = True):
         if spec_k:
             raise NotImplementedError("speculative decode is not ported yet")
         if temperature > 0.0:
@@ -303,8 +358,12 @@ class DecodeEngine:
             # set by deployments that admit offloaded prefills in their int8
             # wire form (dequantized inside the page write)
             self.wire_admission = False
+            # page-write shapes, keyed as the reference keys its scatter
+            # programs
+            self._admit_keys = set()
         else:
             self.caches = model.init_cache(num_slots, capacity, self.device)
+        self._warming = False            # hooks muted during warm-ups
         self._admit_wall: Dict[int, float] = {}
         self.tbt_s: List[float] = []
         self.lengths = np.zeros((num_slots,), np.int32)
@@ -320,9 +379,41 @@ class DecodeEngine:
         self.slot_busy_s = 0.0
         self.tokens_out = 0
         self._free = deque(range(num_slots))
+        # the block's static device inputs and output
+        dev = self.device
+        self._tok_in = torch.zeros((num_slots,), dtype=torch.long, device=dev)
+        self._len_in = torch.zeros((num_slots,), dtype=torch.int32,
+                                   device=dev)
+        if self.paged:
+            self._tbl_in = torch.as_tensor(self.table_seq, device=dev).clone()
+        self._out = torch.zeros((self.block_size, num_slots),
+                                dtype=torch.int32, device=dev)
+        self.graphs = bool(graphs)
+        self._graph = None
+        self._graph_launches = None      # kernel launches of one replay
+        self._captures = 0
+
+    @property
+    def block_compiles(self) -> int:
+        """CUDA graphs captured for the decode block: 1 once the first has
+        been, for good (0 on the CPU and with ``graphs=False``)."""
+        return self._captures
+
+    @property
+    def admit_compiles(self) -> int:
+        """Distinct paged page-write shapes admitted (pow2 page count x
+        pow2 entry count x wire form), as the reference counts its scatter
+        programs; 0 for the dense layout."""
+        return len(self._admit_keys) if self.paged else 0
 
     def free_slots(self) -> List[int]:
         return list(self._free)
+
+    def admit(self, req: Request, first_token: int, one_cache,
+              prompt_len: int) -> bool:
+        """Place one request's shipped KV into a free slot."""
+        return self.admit_many([(req, first_token, one_cache,
+                                 prompt_len)]) == 1
 
     def _start(self, slot: int, req: Request, first_token: int,
                prompt_len: int):
@@ -332,7 +423,8 @@ class DecodeEngine:
         self.budget[slot] = req.max_new_tokens
         self.slot_req[slot] = req.rid
         self.outputs[req.rid] = Response(req.rid, [int(first_token)])
-        self._admit_wall[req.rid] = time.perf_counter()
+        if not self._warming:
+            self._admit_wall[req.rid] = time.perf_counter()
 
     def admit_many(self, entries: Sequence[Tuple]) -> int:
         """entries: [(req, first_token, one_cache, prompt_len), ...].
@@ -389,6 +481,11 @@ class DecodeEngine:
             if ids is None:
                 break                    # pool exhausted: request stays ready
             taken.append((req, first, cache, L, pin, c, ids))
+        if taken:
+            n_ids = sum(len(t[6]) for t in taken)
+            self._admit_keys.add((next_pow2(n_ids) if n_ids else 0,
+                                  next_pow2(len(taken)),
+                                  all(_has_leaf(t[2], "q") for t in taken)))
         for req, first, cache, L, pin, c, ids in taken:
             slot = self._free.popleft()
             payload = paged_mod.build_admit_payload(self.model.cfg, cache,
@@ -402,7 +499,7 @@ class DecodeEngine:
             self._slot_owned[slot] = list(ids)
             self._seq_pages[slot] = seq_all
             self._start(slot, req, first, L)
-            if self.on_admit is not None:
+            if self.on_admit is not None and not self._warming:
                 snap = {"state": payload["state"]} if L % T == 0 else None
                 self.on_admit(req, L, seq_all, snap)
         return len(taken)
@@ -442,7 +539,7 @@ class DecodeEngine:
         resp.truncated = bool(truncated)
         self.truncations += int(truncated)
         t_admit = self._admit_wall.pop(rid, None)
-        if t_admit is not None:
+        if t_admit is not None and not self._warming:
             n_tok = len(resp.output_tokens)
             self.tbt_s.append((time.perf_counter() - t_admit)
                               / max(1, n_tok - 1))
@@ -461,29 +558,133 @@ class DecodeEngine:
             self._seq_pages[slot] = []
             self.table_seq[slot, :] = self._layout.sink
 
-    def _block(self):
-        """``block_size`` greedy decode steps on the device: each step's
-        argmax is the next step's input, and the tokens reach the host once
-        per block (the MoE's loop over experts also reads each layer's
-        expert counts).  Paged: the block tables move to the device once
-        per block.  Returns (block, slots) tokens."""
-        toks = torch.as_tensor(self.tokens, device=self.device).long()
-        lens = torch.as_tensor(self.lengths, device=self.device)
+    def _run_block(self):
+        """``block_size`` greedy decode steps from the static input buffers
+        into the static output, all on the device: each step's argmax is
+        the next step's input.  No host sync, so a graph can capture it."""
         kw = {}
         if self.paged:
-            kw = dict(tables={"seq": torch.as_tensor(self.table_seq,
-                                                     device=self.device)},
+            kw = dict(tables={"seq": self._tbl_in},
                       page_tokens=self._layout.page_tokens,
                       capacity=self.capacity)
-        out = []
+        toks, lens = self._tok_in, self._len_in
         with torch.no_grad():
-            for _ in range(self.block_size):
+            for i in range(self.block_size):
                 logits, self.caches = self.model.decode_step(
                     self.params, toks, self.caches, lens, **kw)
                 toks = torch.argmax(logits, dim=-1)
-                out.append(toks)
+                self._out[i].copy_(toks)
                 lens = lens + 1
-        return torch.stack(out).to(torch.int32).cpu().numpy()
+
+    def _capture(self):
+        """Run the block once eagerly on a side stream (kernel builds,
+        ``cudaFuncSetAttribute`` and allocator growth happen there, outside
+        the capture), then capture it.  A capture launches nothing, so the
+        launches the wrappers count during it are kept for the replays."""
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._run_block()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with _build.captured_launches() as rec, torch.cuda.graph(graph):
+            self._run_block()
+        self._graph, self._graph_launches = graph, rec
+        self._captures += 1
+
+    def _block(self, tokens, lengths):
+        """One block from host ``tokens`` / ``lengths`` (and the block
+        tables): the static inputs are filled, the graph replayed (the
+        first block on the card runs eagerly and captures it; a CPU or
+        ``graphs=False`` engine runs eagerly), and the (block, slots) tokens
+        reach the host once."""
+        self._tok_in.copy_(torch.from_numpy(tokens))
+        self._len_in.copy_(torch.from_numpy(lengths))
+        if self.paged:
+            self._tbl_in.copy_(torch.from_numpy(self.table_seq))
+        if self._graph is not None:
+            self._graph.replay()
+            _build.LAUNCHES.update(self._graph_launches)
+        elif self.graphs and self.device.type == "cuda":
+            self._capture()
+        else:
+            self._run_block()
+        return self._out.to("cpu", copy=True).numpy()
+
+    def warmup_block(self):
+        """One throwaway block with every slot inactive (tokens and lengths
+        0), as the reference's warm-up: dense garbage lands in rows a later
+        admission rewrites, paged writes in the sink page that every table
+        row names.  On the card this is the capture, so no block captures
+        after it (``block_compiles`` stays 1).  Raises when a slot is
+        active: the block would overwrite its state."""
+        if self.active.any():
+            raise RuntimeError("warmup_block needs every slot inactive")
+        zeros = np.zeros((self.num_slots,), np.int32)
+        self._block(zeros, zeros)
+
+    def warmup_admission(self, batch_sizes: Sequence[int],
+                         lengths: Sequence[int]):
+        """Paged admission of the traffic's shapes before traffic:
+        zero-payload requests (and their int8 wire form when
+        ``wire_admission`` is set) are admitted into real slots and retired
+        at once, so the pool round-trips (allocated == freed) and no hook,
+        output or TBT sample is left behind.  A no-op for the dense
+        layout."""
+        if not self.paged:
+            return
+        self._warming = True
+        try:
+            for b in sorted({next_pow2(min(int(x), self.num_slots))
+                             for x in batch_sizes}):
+                for n in sorted({int(x) for x in lengths}):
+                    payload = paged_mod.zero_request_payload(
+                        self.model.cfg, n, self.device)
+                    payloads = [payload]
+                    if self.wire_admission:
+                        payloads.append(quantize_cache_for_wire(payload)[0])
+                    for p in payloads:
+                        self.admit_many([
+                            (Request(rid=-(10_000 + i),
+                                     tokens=np.zeros((n,), np.int32),
+                                     max_new_tokens=1), 0, p, n)
+                            for i in range(b)])
+                        for slot in range(self.num_slots):
+                            rid = self.slot_req[slot]
+                            if rid is not None and rid <= -10_000:
+                                self._retire(slot)
+                                self.outputs.pop(rid, None)
+        finally:
+            self._warming = False
+
+    def step(self):
+        """One eager decode step of every active slot, one host round trip
+        per token (the reference's baseline for ``step_block``).  Dense
+        only: the paged engine grows its pages per block.  Returns
+        #active."""
+        if self.paged:
+            raise RuntimeError("the paged engine decodes in blocks "
+                               "(page growth is per-block); use step_block")
+        if not self.active.any():
+            return 0
+        with torch.no_grad():
+            logits, self.caches = self.model.decode_step(
+                self.params, torch.as_tensor(self.tokens,
+                                             device=self.device).long(),
+                self.caches, torch.as_tensor(self.lengths,
+                                             device=self.device))
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        for i in range(self.num_slots):
+            if not self.active[i]:
+                continue
+            self.outputs[self.slot_req[i]].output_tokens.append(int(nxt[i]))
+            self.lengths[i] += 1
+            self.tokens[i] = nxt[i]
+            self.budget[i] -= 1
+            if self.budget[i] <= 0 or self.lengths[i] >= self.capacity - 1:
+                self._retire(i)
+        return int(self.active.sum())
 
     def step_block(self):
         """Advance every active stream by up to ``block_size`` tokens with
@@ -500,7 +701,7 @@ class DecodeEngine:
             if not self.active.any():
                 return 0
         t0 = time.perf_counter()
-        toks = self._block()                          # (block, num_slots)
+        toks = self._block(self.tokens, self.lengths)  # (block, num_slots)
         idx = np.where(self.active)[0]
         wall = time.perf_counter() - t0
         self.decode_wall_s += wall
@@ -670,6 +871,18 @@ class RegionScheduler:
     def goodput_tok_s(self) -> float:
         return (self.decode.tokens_out / self.wall_s
                 if self.wall_s > 0 else 0.0)
+
+    def stats(self) -> dict:
+        return {"boundaries": self.boundaries,
+                "max_admit_wait": self.max_admit_wait,
+                "starved_boundaries": self.starved_boundaries,
+                "occupancy": self.occupancy(),
+                "goodput_tok_s": self.goodput_tok_s(),
+                "tokens_out": self.decode.tokens_out,
+                "truncations": self.decode.truncations,
+                # tokens per verify round: the reference's value for the
+                # plain (non-speculative) path, the only one ported
+                "accepted_tokens_per_dispatch": 1.0}
 
 
 def _has_leaf(tree, name: str) -> bool:

@@ -14,7 +14,7 @@ import torch
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import Model as JaxModel
 from repro_torch.configs import get_smoke_config
-from repro_torch.params import from_numpy_tree
+from repro_torch.params import from_numpy_tree, init_params
 
 ARCH = "kimi-linear-1t"
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -75,6 +75,27 @@ def shared_params(jcfg, seed: int = 0):
     jparams = JaxModel(jcfg).init(jax.random.PRNGKey(seed))
     tree = nonzero_mamba2_gates(jax.tree.map(np.asarray, jparams), seed)
     return jax.tree.map(jnp.asarray, tree), from_numpy_tree(tree, "cpu")
+
+
+def drawn_params(tcfg, seed: int = 0):
+    """(reference params, the same params as port tensors on the CPU),
+    drawn by the port's ``init_params`` from a seed: the trees have the
+    same keys and shapes, and the numpy leaves go to both frameworks.
+    Cheaper than :func:`shared_params` (the reference's init compiles for
+    ~10 s a smoke config on one core) where the draw itself is not under
+    test."""
+    tparams = init_params(tcfg, torch.Generator().manual_seed(seed), "cpu")
+    return to_jax(tparams), tparams
+
+
+def to_jax(tree):
+    """A port tree (dicts and lists of tensors) as the reference's, leaf
+    by leaf through numpy (bf16 bit for bit)."""
+    if isinstance(tree, dict):
+        return {k: to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_jax(v) for v in tree]
+    return jnp.asarray(flatten(tree)[0][1])
 
 
 def to_torch(tree):

@@ -1023,3 +1023,98 @@ def test_paged_ops_route_cuda_tensors_to_kernels(cuda):
     ops.paged_prefill_attention(qc, kp, kp, tables, ks, ks)
     assert dict(build.LAUNCHES) == {"paged_decode_attention": 1,
                                     "paged_prefill_attention": 1}
+
+
+# -------------------------------------------------- the decode block as a graph
+
+_DECODE_LENS = ([19, 40, 33, 7], [50, 12, 28, 61])  # two waves of four
+
+
+def _decode_engines(cuda, arch, paged):
+    """A smoke model on the card and a maker of its decode engines."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import DecodeEngine, PrefillEngine
+
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    model = Model(cfg)
+
+    def make(graphs):
+        return DecodeEngine(model, params, 4, 128, block_size=4, paged=paged,
+                            page_tokens=16, graphs=graphs)
+
+    return cfg, PrefillEngine(model, params, min_bucket=32), make
+
+
+def _wave(cfg, peng, lens, seed, rid0):
+    """Admission entries of one prefilled wave of prompts."""
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.engine import trim_request_cache
+
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (len(lens), max(lens))).astype(np.int32)
+    first, caches, _ = peng.prefill(toks, np.asarray(lens, np.int32))
+    return [(Request(rid=rid0 + i, tokens=toks[i, :L], max_new_tokens=9 + i),
+             int(first[i]), trim_request_cache(caches, i, L), L)
+            for i, L in enumerate(lens)]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("arch", ["kimi-linear-1t", "mistral-nemo-12b",
+                                  "zamba2-1.2b"])
+def test_replayed_block_matches_eager(cuda, arch, paged):
+    """The captured block, replayed, emits the eager block's tokens, two
+    waves of admissions with budgets ending mid-block; one capture
+    (``warmup_block``) serves every block."""
+    cfg, peng, make = _decode_engines(cuda, arch, paged)
+    waves = [_wave(cfg, peng, lens, w, 10 * w)
+             for w, lens in enumerate(_DECODE_LENS)]
+    outs = []
+    for graphs in (True, False):
+        dec = make(graphs)
+        dec.warmup_block()
+        for wave in waves:
+            assert dec.admit_many(wave) == len(wave)
+            dec.run_until_drained()
+        assert dec.block_compiles == (1 if graphs else 0)
+        outs.append({rid: r.output_tokens for rid, r in dec.outputs.items()})
+    assert len(outs[0]) == 8 and outs[0] == outs[1]
+
+
+def test_replays_add_the_captured_launches(cuda):
+    """A capture launches nothing; each replay adds the launches the capture
+    recorded, which are those of one eager block."""
+    cfg, peng, make = _decode_engines(cuda, "kimi-linear-1t", True)
+    dec = make(True)
+    build.reset_launches()
+    dec.warmup_block()               # an eager block, then the capture
+    torch.cuda.synchronize()
+    eager = dict(build.LAUNCHES)
+    assert set(eager) == {"paged_decode_attention"}
+    assert dict(dec._graph_launches) == eager
+    dec.admit_many(_wave(cfg, peng, _DECODE_LENS[0], 0, 0))
+    build.reset_launches()
+    n = dec.run_until_drained()
+    assert n >= 2 and dec.block_compiles == 1
+    assert dict(build.LAUNCHES) == {k: n * v for k, v in eager.items()}
+
+
+def test_capture_that_syncs_the_host_raises(cuda):
+    """A block that syncs the host cannot be captured: the capture raises,
+    no graph is kept, and nothing falls back to the eager loop."""
+    cfg, peng, make = _decode_engines(cuda, "mistral-nemo-12b", False)
+    dec = make(True)
+    decode_step = dec.model.decode_step
+
+    def syncing(*args, **kw):
+        logits, caches = decode_step(*args, **kw)
+        float(logits[0, 0])          # a host read of a device value
+        return logits, caches
+
+    dec.model.decode_step = syncing
+    with pytest.raises(RuntimeError):
+        dec.warmup_block()
+    assert dec.block_compiles == 0 and dec._graph is None
