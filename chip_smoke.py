@@ -34,6 +34,14 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      forward against the plain version's outputs, and its gradients
      against autograd through the plain version (the same plain backward
      on both sides, so a check of the wiring);
+  3b. calibrate the card (``repro_torch.analysis.calibrate.sweep`` in
+     bf16: a matmul and a streaming probe, then causal attention through
+     the flash kernel plus the FFN's products at prefill lengths
+     256-4096, each timed as replays of a CUDA graph of its calls, the
+     eager dispatch's time recorded beside it), print the peaks, the
+     points and the fit, and write them to
+     ``build/calibration_h100.json``; a peak above 1.05x the data sheet's,
+     an MFU outside (0, 1] or no flash launch fails;
   4. drive the main paths, each warmed first (``PrefillEngine.warmup`` of
      the traffic's shapes with each region's decode engine: every prefill
      bucket and chunk count, the paged admission, and the capture of the
@@ -60,7 +68,11 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      byte, and each decode engine must have captured its block once; then
      on each of the five paths two decode engines, the graph replayed and
      the eager block (``graphs=False``), take the same eight prefilled
-     requests and must emit the same tokens (``check_replay``);
+     requests and must emit the same tokens (``check_replay``); on the two
+     kimi paths again sampling (temperature 0.8, top-k 50): graph and
+     eager the same tokens, a second engine of the seed the same, another
+     seed other tokens, temperature 1 with top-k 1 the greedy tokens, each
+     graph captured once;
   5. compare logits through the kernels with those through the plain
      versions (largest difference within 2 % of the largest |logit|): one
      prefill batch of kimi in bf16; one prefill batch and one paged decode
@@ -75,7 +87,16 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      eager, and one 4096-token
      prefill of kimi, mistral-nemo and zamba2 (``torch.profiler``: device
      busy time, the largest kernels and the flash, decode, delta and GLA
-     kernels' shares);
+     kernels' shares); each profiled decode block (kimi's too) also as a
+     sampling graph, recorded beside the greedy one;
+  5b. the serving launcher end to end (``repro_torch.launch.serve
+     .run_serve``, in-process): zamba2-1.2b at full width and depth,
+     twelve requests in three batches over three PD regions, int8 wire,
+     the calibration of 3b, sampled decode and ``--cross-validate``; with
+     frozen thresholds every request must be answered with its tokens,
+     both routes taken, the simulator replay must agree on every route
+     with no threshold moved, and flash, decode, masked GLA and quantize
+     must launch; then once with live feedback, its agreement recorded;
   6. the training path on ``zamba2-1.2b`` at full width and depth: four
      AdamW steps of 2 x 2048 tokens in two microbatches with remat
      through ``make_train_step`` (the Mamba2 mixers on the unmasked GLA
@@ -97,6 +118,7 @@ port beside this script.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import subprocess
@@ -130,6 +152,21 @@ TOL_BF16_LOGIT_RATIO = 1.5
 # first-token logits through kernels vs plain versions, bf16 model: the
 # largest difference may be this fraction of the largest |logit|
 TOL_LOGITS = 2e-2
+# the calibration sweep's measured peaks may exceed the data sheet's by
+# this factor at most (a higher reading is a timing fault, not a card)
+TOL_PEAK = 1.05
+# the sampled decode the new phases run
+SAMPLING = dict(temperature=0.8, top_k=50)
+# the launcher phase: zamba2-1.2b, the hybrid family the launcher serves at
+# full width and depth on one card, through three PD regions with
+# cross-validation against the simulator replay (``--calibration`` and
+# ``--freeze-thresholds`` are added by the phase)
+LAUNCHER_ARGS = ("--arch", "zamba2-1.2b", "--requests", "12",
+                 "--batches", "3", "--pd-clusters", "3",
+                 "--pd-mesh-gbps", "10", "--link-gbps", "10",
+                 "--wire-compression", "--cross-validate",
+                 "--temperature", str(SAMPLING["temperature"]),
+                 "--top-k", str(SAMPLING["top_k"]))
 
 
 def fail(msg: str):
@@ -1458,7 +1495,8 @@ def profile_decode_block(torch, dev, cfg, params):
     """Where a paged decode block's time goes: one block of 8 slots at 4000
     tokens each (``_profiled``), replayed as the engine's CUDA graph and,
     on a second engine of the same admissions, run eagerly
-    (``graphs=False``)."""
+    (``graphs=False``); then the graph of a third engine that samples
+    (``SAMPLING``), recorded beside the greedy one (no gate)."""
     import numpy as np
 
     from repro_torch.core.blockpool import BlockPool
@@ -1468,10 +1506,11 @@ def profile_decode_block(torch, dev, cfg, params):
 
     L, slots = 4000, 8
     out = {"slots": slots, "tokens_per_slot": L}
-    for tag, graphs in (("graph", True), ("eager", False)):
+    for tag, graphs, sampling in (("graph", True, {}), ("eager", False, {}),
+                                  ("graph_sampled", True, SAMPLING)):
         dec = DecodeEngine(Model(cfg), params, slots, 16384, paged=True,
                            pool=BlockPool(4096, 16), page_tokens=16,
-                           graphs=graphs)
+                           graphs=graphs, **sampling)
         payload = zero_request_payload(cfg, L, dev)
         dec.admit_many([(Request(rid=i, tokens=np.zeros((L,), np.int32),
                                  max_new_tokens=64), 0, payload, L)
@@ -1484,17 +1523,97 @@ def profile_decode_block(torch, dev, cfg, params):
         gc_cuda(torch)
     out["wall_eager_over_graph"] = (out["eager"]["wall_ms"]
                                     / out["graph"]["wall_ms"])
+    g, smp = out["graph"], out["graph_sampled"]
+    out["sampled_minus_greedy"] = {
+        "wall_ms": smp["wall_ms"] - g["wall_ms"],
+        "device_busy_ms": (smp["device_busy_ms_profiled"]
+                           - g["device_busy_ms_profiled"])}
     return out
 
 
-def check_replay(torch, dev, cfg, params, *, paged: bool):
+def _replay_prompts(cfg):
+    """(lengths, right-padded tokens) of eight prompts of 100-2000 tokens
+    from a seed."""
+    import numpy as np
+    rng = np.random.default_rng(4)
+    lens = rng.integers(100, 2000, 8).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab_size, (8, int(lens.max()))
+                        ).astype(np.int32)
+    return lens, toks
+
+
+def prefill_repeatability(torch, dev, cfg, params):
+    """Whether a prefill gives the same bits twice on the card: the eight
+    prompts of ``check_replay`` prefilled three times in one process (the
+    first tokens and each cache leaf, bitwise, against the first run), and
+    the prefill's dropless MoE (the first MoE FFN, 4096 rows) three
+    times, then three times under ``torch.use_deterministic_algorithms``
+    (its ``index_add_`` combine sums in a fixed order there).  Recorded,
+    no gate (ROADMAP Queue C).  Not run by ``main``: a probe of that
+    fault, called on its own, e.g. ``prefill_repeatability(torch, d,
+    kimi_config(), load_params(torch, d, kimi_config(), 0))``."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.models import Model
+    from repro_torch.models.layers import apply_moe_dropless
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.serving import PrefillEngine
+
+    lens, toks = _replay_prompts(cfg)
+    peng = PrefillEngine(Model(cfg), params, min_bucket=128, max_bucket=4096)
+    runs = [peng.prefill(toks, lens)[:2] for _ in range(3)]
+    out = {"first_tokens_equal": [bool(np.array_equal(runs[0][0], r[0]))
+                                  for r in runs[1:]],
+           "cache_leaves_equal": [
+               sum(bool(torch.equal(a, b)) for a, b in
+                   zip(tree_leaves(runs[0][1]), tree_leaves(r[1])))
+               for r in runs[1:]],
+           "cache_leaves": len(tree_leaves(runs[0][1]))}
+    del runs
+    gi, key, spec = next((gi, f"b{bi}", b.ffn)
+                         for gi, g in enumerate(cfg.groups)
+                         for bi, b in enumerate(g.blocks)
+                         if b.ffn.kind == "moe")
+    ffn = params["groups"][gi]["stacked"][key]["ffn"]
+    p = {k: (v[0] if k != "shared" else {n: w[0] for n, w in v.items()})
+         for k, v in ffn.items()}
+    x = torch.randn((4096, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0)
+                    ).to(p["w1"].dtype)
+    with torch.no_grad():
+        for tag, det in (("moe", False), ("moe_deterministic", True)):
+            # warn_only: cuBLAS's own warning (no CUBLAS_WORKSPACE_CONFIG)
+            # is not what is measured here
+            torch.use_deterministic_algorithms(det, warn_only=True)
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    ys = [apply_moe_dropless(p, x, spec) for _ in range(3)]
+            finally:
+                torch.use_deterministic_algorithms(False)
+            out[f"{tag}_repeats_equal"] = [bool(torch.equal(ys[0], y))
+                                           for y in ys[1:]]
+            out[f"{tag}_max_abs_diff"] = max(
+                float((ys[0].float() - y.float()).abs().max())
+                for y in ys[1:])
+    return out
+
+
+def check_replay(torch, dev, cfg, params, *, paged: bool,
+                 sampled: bool = False):
     """The captured block against the eager one on a served path: two
     decode engines (``graphs`` on and off) of 8 slots get the same
     admissions, eight prompts of 100-2000 tokens prefilled once from a
     seed with budgets of 20-27 tokens, and drain them; every token must be
-    the same, and the graph engine must capture once (at its
-    ``warmup_block``).  Returns each engine's decode wall and the graph's
-    launches a replay."""
+    the same, and each graph engine must capture once (at its
+    ``warmup_block``).  ``sampled``: both sample (``SAMPLING``, one seed),
+    and four more graph engines take the same admissions: one of the same
+    seed (the same tokens), one of another seed (other tokens), one at
+    temperature 1 and top-k 1 and one greedy (the same tokens as each
+    other).  Returns each engine's decode wall and the graph's launches a
+    replay."""
     import numpy as np
 
     from repro_torch.models import Model
@@ -1502,20 +1621,25 @@ def check_replay(torch, dev, cfg, params, *, paged: bool):
     from repro_torch.serving.engine import trim_request_cache
 
     model = Model(cfg)
-    rng = np.random.default_rng(4)
-    lens = rng.integers(100, 2000, 8).astype(np.int32)
-    toks = rng.integers(0, cfg.vocab_size, (8, int(lens.max()))
-                        ).astype(np.int32)
+    lens, toks = _replay_prompts(cfg)
     first, caches, _ = PrefillEngine(model, params, min_bucket=128,
                                      max_bucket=4096).prefill(toks, lens)
     entries = [(Request(rid=i, tokens=toks[i, :L], max_new_tokens=20 + i),
                 int(first[i]), trim_request_cache(caches, i, int(L)), int(L))
                for i, L in enumerate(lens)]
     del caches
+    engines = {"graph": (True, {}), "eager": (False, {})}
+    if sampled:
+        smp = dict(SAMPLING, seed=1)
+        engines = {"graph": (True, smp), "eager": (False, smp),
+                   "graph_same_seed": (True, smp),
+                   "graph_other_seed": (True, dict(smp, seed=2)),
+                   "graph_top1": (True, dict(temperature=1.0, top_k=1)),
+                   "graph_greedy": (True, {})}
     res, outs = {}, {}
-    for tag, graphs in (("graph", True), ("eager", False)):
+    for tag, (graphs, sampling) in engines.items():
         dec = DecodeEngine(model, params, 8, 4096, block_size=8, paged=paged,
-                           page_tokens=16, graphs=graphs)
+                           page_tokens=16, graphs=graphs, **sampling)
         dec.warmup_block()
         if dec.admit_many(entries) != len(entries):
             fail(f"{cfg.name}: replay check admitted too few requests")
@@ -1525,21 +1649,150 @@ def check_replay(torch, dev, cfg, params, *, paged: bool):
         outs[tag] = {rid: r.output_tokens for rid, r in dec.outputs.items()}
         res[f"{tag}_decode_wall_s"] = dec.decode_wall_s
         res[f"{tag}_block_compiles"] = dec.block_compiles
-        if graphs:
+        if tag == "graph":
             res["blocks"] = blocks
             res["launches_per_replay"] = dict(dec._graph_launches or {})
         del dec
         gc_cuda(torch)
-    if res["graph_block_compiles"] != 1:
-        fail(f"{cfg.name}: the decode block was captured "
-             f"{res['graph_block_compiles']} times")
+    for tag, (graphs, _) in engines.items():
+        if graphs and res[f"{tag}_block_compiles"] != 1:
+            fail(f"{cfg.name}: the {tag} engine's decode block was "
+                 f"captured {res[f'{tag}_block_compiles']} times")
     same = sum(outs["graph"][r] == outs["eager"][r] for r in outs["eager"])
     res["requests"], res["requests_identical"] = len(outs["eager"]), same
+    what = f"{cfg.name} (paged={paged}, sampled={sampled})"
     if same != len(outs["eager"]) or set(outs["graph"]) != set(outs["eager"]):
-        fail(f"{cfg.name} (paged={paged}): replayed tokens differ from the "
-             f"eager block's on {len(outs['eager']) - same} requests")
+        fail(f"{what}: replayed tokens differ from the eager block's on "
+             f"{len(outs['eager']) - same} requests")
+    if sampled:
+        if outs["graph_same_seed"] != outs["graph"]:
+            fail(f"{what}: two engines of one seed sampled other tokens")
+        if outs["graph_other_seed"] == outs["graph"]:
+            fail(f"{what}: another seed sampled the same tokens")
+        if outs["graph_top1"] != outs["graph_greedy"]:
+            fail(f"{what}: temperature 1, top-k 1 is not the greedy stream")
+        res["requests_differing_other_seed"] = sum(
+            outs["graph_other_seed"][r] != outs["graph"][r]
+            for r in outs["graph"])
     res["tokens"] = sum(len(t) for t in outs["graph"].values())
+    # a digest of the graph engine's streams, to compare checkouts by
+    res["tokens_sha1"] = hashlib.sha1(json.dumps(
+        outs["graph"], sort_keys=True).encode()).hexdigest()
     return res
+
+
+def calibration(torch, dev):
+    """Phase 3b: the measured calibration of this card
+    (``repro_torch.analysis.calibrate.sweep`` in bf16: a matmul and a
+    streaming probe, then causal flash attention through the hand-written
+    kernel plus the FFN's two products at prefill lengths 256-4096), the
+    fit, written to ``build/calibration_h100.json`` for the launcher
+    phase.  Fails if a measured peak is above the data sheet's by more
+    than ``TOL_PEAK``, an MFU lies outside (0, 1] or the flash kernel was
+    not launched."""
+    from repro_torch.analysis import calibrate
+    from repro_torch.kernels import build
+
+    path = ROOT / "build" / "calibration_h100.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = calibrate.sweep(str(path), dev, torch.bfloat16)
+    wall = time.perf_counter() - t0
+    flash = build.LAUNCHES.get("flash_attention", 0)
+    m, cal = out["machine"], out["calibration"]
+    print(f"calibration: peak {m['peak_flops'] / 1e12:.1f} TFLOP/s (matmul "
+          f"probe {m['matmul_probe_flops'] / 1e12:.1f}), "
+          f"{m['mem_bw'] / 1e12:.3f} TB/s; fit mfu_max "
+          f"{cal['mfu_max']:.4f}, l_half {cal['l_half']:.1f}", flush=True)
+    for p in out["points"]:
+        print(f"calibration l={p['l']}: attention {p['attn_us']:.1f} us "
+              f"(eager {p['attn_eager_us']:.1f}), FFN {p['ffn_us']:.1f} us "
+              f"(eager {p['ffn_eager_us']:.1f}), "
+              f"{p['achieved_flops'] / 1e12:.1f} TFLOP/s, mfu "
+              f"{p['mfu']:.4f}", flush=True)
+    if m["peak_flops"] > TOL_PEAK * BF16_FLOP_S:
+        fail(f"calibration: peak {m['peak_flops']:.4g} FLOP/s is above "
+             f"{TOL_PEAK} x {BF16_FLOP_S:.4g}")
+    if m["mem_bw"] > TOL_PEAK * HBM_BYTES_S:
+        fail(f"calibration: {m['mem_bw']:.4g} B/s is above {TOL_PEAK} x "
+             f"{HBM_BYTES_S:.4g}")
+    bad = [p["l"] for p in out["points"] if not 0.0 < p["mfu"] <= 1.0]
+    if bad:
+        fail(f"calibration: MFU outside (0, 1] at lengths {bad}")
+    if flash <= 0:
+        fail("calibration: the flash kernel was not launched")
+    return {"path": str(path.relative_to(ROOT)), "machine": m,
+            "points": out["points"],
+            "fit": {"mfu_max": cal["mfu_max"], "l_half": cal["l_half"]},
+            "flash_launches": flash, "wall_s": wall}
+
+
+def launcher(torch, dev, calibration_path):
+    """Phase 5b: the serving launcher end to end, in-process
+    (``repro_torch.launch.serve.run_serve`` with ``LAUNCHER_ARGS``, the
+    calibration of phase 3b and sampled decode), every kernel launch
+    counted from 0.  With frozen thresholds: every request answered with
+    its tokens, both routes taken, the simulator replay agreeing on every
+    route and no threshold moved on either side, and flash, decode, masked
+    GLA and quantize launched.  Then once more with live congestion
+    feedback, its agreement recorded (no gate: the reference expects >=
+    0.9 there, and it follows wall times).  Returns the two summaries and
+    the frozen run's launches."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+
+    out, launches = {}, {}
+    for tag, frozen in (("launcher_frozen", True), ("launcher_live", False)):
+        argv = list(LAUNCHER_ARGS) + ["--calibration", str(calibration_path)]
+        if frozen:
+            argv.append("--freeze-thresholds")
+        args = serve.build_parser().parse_args(argv)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        rep = serve.run_serve(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(build.LAUNCHES)
+        cv, reqs, outs = (rep["cross_validate"], rep["_requests"],
+                          rep["_outputs"])
+        routes = {}
+        for r in reqs:
+            routes[r.route] = routes.get(r.route, 0) + 1
+        summary = {"argv": argv, "wall_s": wall, "routes": routes,
+                   "route_agreement": cv["route_agreement"],
+                   "mismatches": cv["mismatches"],
+                   "thresholds": cv["thresholds"], "ttft": cv["ttft"],
+                   "egress_bytes": cv["egress_bytes"],
+                   "kv_wire_compression": cv["kv_wire_compression"],
+                   "tokens_out": sum(len(o.output_tokens)
+                                     for o in outs.values()),
+                   "truncations": rep["deployment"]["truncations"],
+                   "launches": counts}
+        out[tag] = summary
+        print(f"{tag}: {wall:.1f} s, routes {routes}, agreement "
+              f"{cv['route_agreement']}, launches {counts}", flush=True)
+        if frozen:
+            launches = counts
+            for r in reqs:
+                o = outs.get(r.rid)
+                if o is None or len(o.output_tokens) != 1 + r.max_new_tokens:
+                    fail(f"launcher: request {r.rid} not answered with its "
+                         f"{1 + r.max_new_tokens} tokens")
+            if len(routes) < 2 or "prfaas" not in routes:
+                fail(f"launcher: both routes must be taken, got {routes}")
+            if cv["route_agreement"] != 1.0 or cv["mismatches"]:
+                fail(f"launcher: the simulator replay disagrees on "
+                     f"{cv['mismatches']}")
+            for side, th in cv["thresholds"].items():
+                if set(th.values()) != {float(args.threshold)}:
+                    fail(f"launcher: {side} thresholds moved: {th}")
+            require_launched(counts, ("flash_attention", "decode_attention",
+                                      "gla_chunked_fused",
+                                      "quantize_int8_fused"), tag)
+        del rep, reqs, outs
+        gc_cuda(torch)
+    return out, launches
 
 
 def profile_prefill(torch, dev, cfg, params):
@@ -1911,6 +2164,8 @@ def main():
     print(f"training-shape op checks (forward error; gradient difference "
           f"/ largest gradient): {grad_checks}", flush=True)
     torch.cuda.empty_cache()
+    calib = calibration(torch, dev)
+    gc_cuda(torch)
 
     # kimi-linear-1t slice: the dense path, then the paged one
     cfg = kimi_config()
@@ -1934,6 +2189,15 @@ def main():
         paths[f"{tag}_replay"] = check_replay(torch, dev, cfg, params,
                                               paged=paged)
         print(f"{tag}_replay: {paths[f'{tag}_replay']}", flush=True)
+        paths[f"{tag}_replay_sampled"] = check_replay(
+            torch, dev, cfg, params, paged=paged, sampled=True)
+        print(f"{tag}_replay_sampled: {paths[f'{tag}_replay_sampled']}",
+              flush=True)
+    paths["kimi_decode_profile"] = profile_decode_block(torch, dev, cfg,
+                                                        params)
+    print(f"kimi_decode_profile: sampled - greedy "
+          f"{paths['kimi_decode_profile']['sampled_minus_greedy']}",
+          flush=True)
     paths["kimi_logits"] = compare_logits(torch, dev, cfg, params)
     paths["kimi_prefill_profile"] = profile_prefill(torch, dev, cfg, params)
     paths["kimi_mla_concat"] = mla_concat_cost(torch, dev, cfg, params)
@@ -1991,6 +2255,12 @@ def main():
     zamba2_paths(torch, dev, paths, launches)
     gc_cuda(torch)
 
+    # the serving launcher end to end, calibrated, sampled, cross-validated
+    runs, counts = launcher(torch, dev, ROOT / calib["path"])
+    paths.update(runs)
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+
     # the training path: zamba2-1.2b (row 6), then the KDA:MLA recipe
     # (row 5)
     summary, check = zamba2_train(torch, dev)
@@ -2009,6 +2279,7 @@ def main():
           f"{summary['losses'][-1]:.4f}, "
           f"{summary['mean_step_s_after_first']:.3f} s a step, launches "
           f"{summary['launches']}", flush=True)
+    paths["calibration"] = calib
     paths["gradient_checks"] = grad_checks
     paths["decode_ptxas"] = decode_ptxas
     paths["delta_ptxas"] = delta_ptxas

@@ -1,17 +1,30 @@
-"""Multi-region serving launcher on the port.
+"""Multi-region serving launcher on the port + policy/actual
+cross-validation.
 
 Drives the port's ``CrossDCDeployment`` (N PD regions fed by one PrfaaS
-cluster over a ``LinkTopology``, routed by the reference's ``Router``)
-under the reference launcher's sessionful synthetic workload, and prints
-per-request routes and the deployment metrics.  Weights are drawn from
-``--seed``.  Runs on the card unless ``--device cpu`` is given.
+cluster over a ``LinkTopology``, routed by the same ``core.router.Router``
+the simulator uses) under the reference launcher's sessionful synthetic
+workload, and prints per-request routes and the deployment metrics; then
+(``--cross-validate``) replays the live run's arrival trace through
+``core.simulator.PrfaasSimulator`` and reports per-request route agreement
+plus TTFT/egress deltas.  With ``--freeze-thresholds`` (no congestion
+feedback on either side) the two control planes are the same code over the
+same state and must agree on every request; with live feedback they may
+drift where telemetry timing differs.  The fidelity caveats are the
+reference's (``src/repro/launch/serve.py``): freezing pins thresholds, not
+the abundant/scarce bandwidth regime, and the live TTFT/egress are upper
+bounds (the deployment reships the full prefill cache on a cached prefix).
+
+Weights are drawn from ``--seed``.  Decode is greedy unless
+``--temperature`` is set (``--top-k`` keeps the k largest logits);
+``--calibration`` prices routing and the replay with a measured profile
+(``python -m repro_torch.analysis.calibrate --sweep``).  Runs on the card
+unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch kimi-linear-1t \
-        --smoke --requests 12 --pd-clusters 3 --pd-mesh-gbps 10 \
-        --wire-compression --freeze-thresholds
-
-The reference's ``--cross-validate`` (a replay through the cluster
-simulator) belongs to a later slice of the port.
+        --smoke --requests 12 --batches 3 --pd-clusters 3 \
+        --pd-mesh-gbps 10 --link-gbps 10 --wire-compression \
+        --freeze-thresholds --cross-validate
 """
 from __future__ import annotations
 
@@ -22,7 +35,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core import split_even
+from repro_torch.core import (PrfaasSimulator, SimConfig, SystemConfig,
+                              ThroughputModel, Workload, split_even)
+from repro_torch.core.hardware import CHIPS, AnalyticProfile
 from repro_torch.models import Model
 from repro_torch.params import init_params
 from repro_torch.serving import CrossDCDeployment, DeploymentConfig, Request
@@ -46,14 +61,28 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--pd-mesh-gbps", type=float, default=0.0)
     ap.add_argument("--wire-compression", action="store_true",
                     help="int8-quantize KV on the inter-DC wire")
+    ap.add_argument("--calibration", default=None,
+                    help="a sweep's JSON (repro_torch.analysis.calibrate "
+                         "--sweep): route thresholds + simulator service "
+                         "times then derive from that machine's measured "
+                         "kernels (CalibratedProfile) instead of the "
+                         "default chip roofline")
     ap.add_argument("--freeze-thresholds", action="store_true",
-                    help="disable congestion feedback")
+                    help="disable congestion feedback (deterministic "
+                         "routing for exact cross-validation)")
+    ap.add_argument("--cross-validate", action="store_true",
+                    help="replay the live arrival trace through "
+                         "PrfaasSimulator and report route agreement")
     ap.add_argument("--session-prob", type=float, default=0.35,
                     help="P(request continues an open session)")
     ap.add_argument("--decode-block-size", type=int, default=8)
     ap.add_argument("--max-prefill-bucket", type=int, default=None,
                     help="pow2 bucket cap; longer prompts run as chunked "
                          "prefill interleaved between decode blocks")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="decode sampling temperature (0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="sample from the top-k logits (0 = full vocab)")
     ap.add_argument("--tbt-slo", type=float, default=0.0)
     ap.add_argument("--batch-gap-s", type=float, default=120.0)
     ap.add_argument("--max-new-tokens", type=int, default=8)
@@ -78,11 +107,15 @@ def _session_tokens(seed: int, sid: int, length: int, vocab: int):
 
 
 def generate_workload(args, cfg, pd_names, shares):
-    """Sessionful multi-region request batches (the reference launcher's
-    workload generator)."""
+    """Sessionful multi-region batches + the matching simulator trace (the
+    reference launcher's workload generator).
+
+    Returns (batches, trace) where ``trace`` rows are
+    ``(arrival_s, total_len, session_id, home)`` in request order — exactly
+    what ``PrfaasSimulator.inject_trace`` consumes."""
     rng = np.random.default_rng(args.seed)
     sessions: dict = {}                    # sid -> (length, home)
-    batches = []
+    batches, trace = [], []
     rid, next_sid = 0, 0
     sizes = [n for n in split_even(args.requests, max(1, args.batches))
              if n > 0]
@@ -106,9 +139,84 @@ def generate_workload(args, cfg, pd_names, shares):
                                                 cfg.vocab_size),
                 max_new_tokens=args.max_new_tokens, arrival=arrival,
                 home=home))
+            trace.append((arrival, length, sid, home))
             rid += 1
         batches.append(batch)
-    return batches
+    return batches, trace
+
+
+def cross_validate(args, model_cfg, dep: CrossDCDeployment, trace,
+                   live_reqs) -> dict:
+    """Replay the live run's arrival trace through the discrete-event
+    simulator (same Router policy, same topology shape, the live run's
+    profile) and compare per-request routing plus TTFT/egress."""
+    k = args.pd_clusters
+    if dep.cfg.calibration:
+        # the replay must price prefill with the SAME measured profile the
+        # live Router used, or thresholds/agreement are meaningless
+        profile = dep.profile
+    else:
+        profile = AnalyticProfile(
+            model_cfg, CHIPS[dep.cfg.chip], dep.cfg.chips_per_instance,
+            kv_dtype_bytes=2 if model_cfg.dtype == "bfloat16" else 4)
+    w = Workload()
+    tm = ThroughputModel(profile, profile, w)
+    ratio = dep.measured_compression() if args.wire_compression else 1.0
+    sc = SystemConfig(1, k, k, dep.system.b_out, float(args.threshold),
+                      kv_wire_compression=ratio)
+    horizon = trace[-1][0] + args.batch_gap_s + 60.0
+    # the reference prices speculation with the live run's measured
+    # acceptance; speculative decode is not ported yet (ROADMAP A8), so
+    # the live run is plain decode and the rate is 0.0, as the reference's
+    # is with speculation off
+    accept_rate = 0.0
+    sim = PrfaasSimulator(tm, sc, w, SimConfig(
+        arrival_rate=1.0, sim_time=horizon, seed=args.seed,
+        link_gbps=args.link_gbps, pd_clusters=k,
+        pd_shares=_parse_floats(args.pd_shares, k, "--pd-shares"),
+        pd_link_gbps=_parse_floats(args.pd_link_gbps, k, "--pd-link-gbps"),
+        pd_mesh_gbps=args.pd_mesh_gbps,
+        block_tokens=dep.cfg.block_tokens,
+        # replay decode admission at the live engine's block-boundary
+        # cadence (the RegionScheduler admits at step_block boundaries)
+        decode_block_tokens=dep.cfg.decode_block_size,
+        spec_accept_rate=accept_rate, tbt_slo_s=dep.cfg.tbt_slo_s,
+        pool_blocks=200_000, engine="event",
+        # frozen: no control epochs -> per-home thresholds never move on
+        # either side, so routing must agree exactly
+        control_dt=0.0 if args.freeze_thresholds else 0.25))
+    sim_reqs = sim.inject_trace(trace)
+    sim.run()
+    sim.topology.run_until_idle()
+
+    routed = [(lr, sr) for lr, sr in zip(live_reqs, sim_reqs)
+              if lr.decision is not None and sr.decision is not None]
+    agree = [lr.decision.target == sr.decision.target for lr, sr in routed]
+    mismatches = [
+        {"rid": lr.rid, "live": lr.decision.target,
+         "sim": sr.decision.target, "home": lr.home}
+        for (lr, sr), ok in zip(routed, agree) if not ok]
+    live_ttft = float(np.mean([lr.ttft_s for lr in live_reqs]))
+    sim_ttft_v = [sr.first_token - sr.arrival for sr in sim_reqs
+                  if sr.first_token > 0]
+    sim_ttft = float(np.mean(sim_ttft_v)) if sim_ttft_v else float("nan")
+    live_egress = dep.topology.sent_bytes
+    sim_egress = sim.topology.sent_bytes
+    return {
+        "requests": len(routed),
+        "route_agreement": (sum(agree) / len(agree)) if agree else 1.0,
+        "mismatches": mismatches,
+        "thresholds": {"live": {n: dep.router.threshold_for(n)
+                                for n in dep.pd_names},
+                       "sim": {n: sim.router.threshold_for(n)
+                               for n in sim._pd_names}},
+        "ttft": {"live_mean_s": live_ttft, "sim_mean_s": sim_ttft,
+                 "delta_s": sim_ttft - live_ttft},
+        "egress_bytes": {"live": live_egress, "sim": sim_egress,
+                         "ratio": sim_egress / max(live_egress, 1.0)},
+        "kv_wire_compression": ratio,
+        "spec_accept_rate": accept_rate,
+    }
 
 
 def run_serve(args) -> dict:
@@ -128,20 +236,32 @@ def run_serve(args) -> dict:
         adapt_thresholds=not args.freeze_thresholds,
         decode_block_size=args.decode_block_size,
         max_prefill_bucket=args.max_prefill_bucket,
-        tbt_slo_s=args.tbt_slo)
+        temperature=args.temperature, top_k=args.top_k,
+        sample_seed=args.seed, tbt_slo_s=args.tbt_slo,
+        calibration=args.calibration)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = init_params(cfg, gen, args.device)
     dep = CrossDCDeployment(Model(cfg), params, dep_cfg)
-    batches = generate_workload(args, cfg, dep.pd_names, shares)
+
+    batches, trace = generate_workload(args, cfg, dep.pd_names, shares)
+    live_reqs = [r for batch in batches for r in batch]
+    outputs = {}
     for batch in batches:
-        dep.submit_batch(batch)
-    return {"deployment": dep.metrics(),
-            "_requests": [r for batch in batches for r in batch]}
+        outputs.update(dep.submit_batch(batch))
+
+    report = {"deployment": dep.metrics()}
+    if args.cross_validate:
+        report["cross_validate"] = cross_validate(args, cfg, dep, trace,
+                                                  live_reqs)
+    # stripped before printing: the requests and their responses by rid
+    report["_requests"], report["_outputs"] = live_reqs, outputs
+    return report
 
 
 def main():
     args = build_parser().parse_args()
     report = run_serve(args)
+    report.pop("_outputs")
     for r in report.pop("_requests"):
         print(f"req {r.rid}: len={len(r.tokens):4d} home={r.home:5s} "
               f"route={r.route:7s} cached={r.cached_tokens:4d} "

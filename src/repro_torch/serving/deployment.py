@@ -1,8 +1,9 @@
 """Multi-region PrfaaS-PD deployment, in-process: the paper's cross-DC
 serving loop on the port's engines.
 
-Counterpart of ``src/repro/serving/deployment.py`` for the dense KV layout
-with greedy decode.  A shared PrfaaS ``PrefillEngine`` takes long requests,
+Counterpart of ``src/repro/serving/deployment.py``, greedy or sampled
+decode (``temperature``, ``top_k``, ``sample_seed``) over the dense or the
+paged KV layout.  A shared PrfaaS ``PrefillEngine`` takes long requests,
 each of N PD regions runs its own ``RegionScheduler`` (local prefill on a
 shared PD ``PrefillEngine``, its own ``DecodeEngine``).  Routing, prefix
 caches, the global KV manager and the inter-DC link topology are the
@@ -25,9 +26,12 @@ full cache as before and, with wire compression, admit in their int8
 form, dequantized inside the page write.
 
 The Router prices prefill with the reference's analytic profile of the
-named chip (``chip="h200"`` by default, so routes match the reference); an
-H100 profile comes with calibration, a later slice.  Speculative decode,
-sampling and calibration raise ``NotImplementedError``.
+named chip (``chip="h200"`` by default, so routes match the reference), or
+with ``calibration`` (a sweep's JSON from
+``python -m repro_torch.analysis.calibrate --sweep``) with the measured
+``CalibratedProfile`` of the machine that ran the sweep, an H100 on the
+card.  ``launch.serve --cross-validate`` prices its simulator replay with
+the same profile.  Speculative decode raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,6 +40,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.analysis.calibrate import (calibrated_profile,
+                                            load_calibration)
 from repro_torch.configs.base import AttentionSpec
 from repro_torch.core.blockpool import BlockPool
 from repro_torch.core.hardware import CHIPS, AnalyticProfile
@@ -70,7 +76,9 @@ class DeploymentConfig:
     min_prefill_bucket: int = 32       # smallest pow2 prefill length bucket
     max_prefill_bucket: Optional[int] = None  # chunked prefill past this
     max_prefill_batch: int = 8         # requests per scheduler prefill unit
-    temperature: float = 0.0           # 0 = greedy (the only mode ported)
+    temperature: float = 0.0           # 0 = greedy (bit-identical default)
+    top_k: int = 0                     # 0 = full vocab when sampling
+    sample_seed: int = 0               # decode sampling noise seed
     spec_k: int = 0                    # speculative decode (not ported)
     tbt_slo_s: float = 0.0             # TBT SLO for attainment (0 = off)
     block_tokens: int = 16
@@ -81,17 +89,15 @@ class DeploymentConfig:
     adapt_thresholds: bool = True      # live per-home congestion feedback
     chip: str = "h200"                 # AnalyticProfile chip for the Router
     chips_per_instance: int = 8
-    calibration: Optional[str] = None  # measured-kernel profile (not ported)
+    # path to a sweep's JSON (``analysis.calibrate --sweep``): the Router's
+    # profile then derives from that machine's measured kernels instead of
+    # the named chip's roofline
+    calibration: Optional[str] = None
 
 
 class CrossDCDeployment:
     def __init__(self, model: Model, params, cfg: DeploymentConfig,
                  router_cfg: Optional[RouterConfig] = None):
-        for flag, on in (("spec_k", cfg.spec_k),
-                         ("temperature", cfg.temperature > 0),
-                         ("calibration", cfg.calibration)):
-            if on:
-                raise NotImplementedError(f"{flag} is not ported yet")
         self.model = model
         self.cfg = cfg
         k = cfg.pd_clusters
@@ -112,8 +118,11 @@ class CrossDCDeployment:
         self.decoders: Dict[str, DecodeEngine] = {
             name: DecodeEngine(model, params, cfg.decode_slots, cfg.capacity,
                                block_size=cfg.decode_block_size,
-                               paged=cfg.paged_kv, pool=pools.get(name),
-                               page_tokens=cfg.block_tokens)
+                               temperature=cfg.temperature, top_k=cfg.top_k,
+                               seed=cfg.sample_seed, paged=cfg.paged_kv,
+                               pool=pools.get(name),
+                               page_tokens=cfg.block_tokens,
+                               spec_k=cfg.spec_k)
             for name in self.pd_names}
         self.schedulers: Dict[str, RegionScheduler] = {
             name: RegionScheduler(self.pd_prefill, self.decoders[name],
@@ -136,8 +145,13 @@ class CrossDCDeployment:
                 else [cfg.link_gbps] * k)
         if len(star) != k:
             raise ValueError("pd_link_gbps must have one entry per region")
-        profile = AnalyticProfile(model.cfg, CHIPS[cfg.chip],
-                                  cfg.chips_per_instance)
+        if cfg.calibration:
+            profile = calibrated_profile(model.cfg,
+                                         load_calibration(cfg.calibration),
+                                         cfg.chips_per_instance)
+        else:
+            profile = AnalyticProfile(model.cfg, CHIPS[cfg.chip],
+                                      cfg.chips_per_instance)
         self.profile = profile
         self.throughput_model = ThroughputModel(profile, profile, Workload())
         self.system = SystemConfig(1, k, k, sum(star) * 1e9 / 8.0,

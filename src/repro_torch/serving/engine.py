@@ -1,9 +1,9 @@
 """Continuously-batched region engine: bucketed / chunked prefill, slot-based
 decode and the region scheduler that interleaves them.
 
-Counterpart of ``src/repro/serving/engine.py`` for greedy decode over the
-dense or the paged KV layout (speculative decode and sampling are later
-slices and raise ``NotImplementedError``).  The reference compiles one
+Counterpart of ``src/repro/serving/engine.py`` for greedy and sampled
+decode over the dense or the paged KV layout (speculative decode is a later
+slice and raises ``NotImplementedError``).  The reference compiles one
 program per shape; PyTorch runs prefill eagerly, so the bucket grid there
 bounds padding and keeps tokens identical to the reference, and
 ``compiles`` counts the distinct shapes run.  The reference's jitted
@@ -19,11 +19,12 @@ decode block (a ``lax.scan``) is, on the card, one CUDA graph per
     tables over a ``BlockPool``; ``admit_many`` writes the admitted
     requests into free slots (paged: only their pages, a pinned prefix
     mapped instead of rewritten), ``step_block`` runs ``block_size``
-    decode steps with the argmax fed back on the device and one host sync
-    per block (on the card a replay of the captured graph), ``step`` one
-    eager token.  ``warmup_admission`` / ``warmup_block`` (called by
-    ``PrefillEngine.warmup``) run admission and the block once before
-    traffic; the latter is the capture.
+    decode steps with the next token (the argmax, or a sample at
+    ``temperature > 0``, :func:`sample_tokens`) fed back on the device and
+    one host sync per block (on the card a replay of the captured graph),
+    ``step`` one eager greedy token.  ``warmup_admission`` /
+    ``warmup_block`` (called by ``PrefillEngine.warmup``) run admission
+    and the block once before traffic; the latter is the capture.
   * ``RegionScheduler``: admit ready requests -> one prefill unit -> one
     decode block, per tick; ``stats()`` as the reference's.
 """
@@ -57,6 +58,55 @@ def next_pow2(n: int, lo: int = 1) -> int:
 
 def _device_of(params) -> torch.device:
     return params["embed"].device
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A bijection of [0, 2^32) (Wellons' "lowbias32" constants) on
+    Python ints or int64 tensors.  Both multipliers are below 2^31, so no
+    product of a 32-bit value reaches 2^63, where int64 would wrap."""
+    x = x ^ (x >> 16)
+    x = (x * 0x21F0AAAD) & _MASK32
+    x = x ^ (x >> 15)
+    x = (x * 0x735A2D97) & _MASK32
+    return x ^ (x >> 15)
+
+
+def sample_hash(seed: int, step: torch.Tensor, rows: int, cols: int):
+    """(rows, cols) int64 in [0, 2^32): a stateless hash of (``seed``,
+    ``step``, row, column), all integer ops on ``step``'s device, so the
+    same inputs give the same bits on the CPU and the card.  ``step`` is a
+    0-d int64 tensor: a captured graph reads it at each replay."""
+    dev = step.device
+    key = _mix32((step & _MASK32) ^ _mix32(int(seed) & _MASK32))
+    r = _mix32(key ^ torch.arange(rows, dtype=torch.long, device=dev))
+    return _mix32(r[:, None] ^ torch.arange(cols, dtype=torch.long,
+                                            device=dev)[None, :])
+
+
+def sample_tokens(logits, step, *, temperature: float, top_k: int = 0,
+                  seed: int = 0):
+    """A token for each row of (rows, vocab) ``logits`` drawn from
+    softmax(logits / temperature) over the ``top_k`` largest (all when 0;
+    ties with the k-th kept), as the reference's ``DecodeEngine._select``
+    at ``temperature > 0``.  It is the Gumbel-max argmax of logits /
+    temperature + Gumbel noise, the noise a function of (``seed``,
+    ``step``, row, vocabulary index) alone (:func:`sample_hash`), so a
+    replayed graph draws fresh noise at each step and a stream does not
+    depend on how it is cut into blocks."""
+    x = logits.float() / temperature
+    if top_k > 0:
+        kth = torch.topk(x, top_k, dim=-1).values[..., -1:]
+        x = x.masked_fill(x < kth, float("-inf"))
+    h = sample_hash(seed, step, x.shape[0], x.shape[1])
+    # the top 23 bits: v + 0.5 is exact in float32 for v < 2^23, so u
+    # lies in [2^-24, 1 - 2^-24] and the Gumbel noise is finite (with 24
+    # bits, 2^24 - 0.5 rounds to 2^24: u = 1, noise +inf, and a masked
+    # -inf column would score NaN)
+    u = ((h >> 9).float() + 0.5) * 2.0 ** -23
+    return torch.argmax(x - torch.log(-torch.log(u)), dim=-1)
 
 
 class PrefillEngine:
@@ -287,8 +337,12 @@ class ChunkedPrefill:
 
 
 class DecodeEngine:
-    """Slot-based continuous-batching decode, greedy, over dense per-slot
-    caches or (``paged=True``) shared page pools.
+    """Slot-based continuous-batching decode over dense per-slot caches or
+    (``paged=True``) shared page pools; greedy, or sampled at
+    ``temperature > 0`` from the ``top_k`` largest logits (0: all) with
+    the noise of step ``i`` of a block keyed by (``seed``, tokens emitted
+    before the block + ``i``), as the reference's ``fold_in(key, step0 +
+    i)``.
 
     On the card the decode block is one CUDA graph, captured once (by
     ``warmup_block``, or after the first block, which runs eagerly as the
@@ -310,20 +364,26 @@ class DecodeEngine:
 
     def __init__(self, model: Model, params, num_slots: int, capacity: int,
                  block_size: int = 8, *, temperature: float = 0.0,
-                 paged: bool = False, pool: Optional[BlockPool] = None,
-                 page_tokens: int = 16, spec_k: int = 0,
-                 graphs: bool = True):
+                 top_k: int = 0, seed: int = 0, paged: bool = False,
+                 pool: Optional[BlockPool] = None, page_tokens: int = 16,
+                 spec_k: int = 0, graphs: bool = True):
+        if spec_k and temperature > 0.0:
+            raise ValueError("speculative decode verifies the longest "
+                             "greedy-matching prefix; it requires "
+                             "temperature=0 (got spec_k "
+                             f"{spec_k}, temperature {temperature})")
         if spec_k:
             raise NotImplementedError("speculative decode is not ported yet")
-        if temperature > 0.0:
-            raise NotImplementedError("sampled decode is not ported yet; "
-                                      "the port decodes greedily")
         self.model = model
         self.params = params
         self.device = _device_of(params)
         self.num_slots = num_slots
         self.capacity = capacity
         self.block_size = max(1, int(block_size))
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.seed = int(seed)
+        self._steps = 0                # tokens-emitted counter (noise key)
         self.paged = bool(paged)
         if self.paged:
             if pool is None:
@@ -386,6 +446,7 @@ class DecodeEngine:
                                    device=dev)
         if self.paged:
             self._tbl_in = torch.as_tensor(self.table_seq, device=dev).clone()
+        self._step_in = torch.zeros((), dtype=torch.long, device=dev)
         self._out = torch.zeros((self.block_size, num_slots),
                                 dtype=torch.int32, device=dev)
         self.graphs = bool(graphs)
@@ -559,9 +620,10 @@ class DecodeEngine:
             self.table_seq[slot, :] = self._layout.sink
 
     def _run_block(self):
-        """``block_size`` greedy decode steps from the static input buffers
-        into the static output, all on the device: each step's argmax is
-        the next step's input.  No host sync, so a graph can capture it."""
+        """``block_size`` decode steps from the static input buffers into
+        the static output, all on the device: each step's token (argmax or
+        sample, keyed by ``_step_in`` + the step) is the next step's input.
+        No host sync, so a graph can capture it."""
         kw = {}
         if self.paged:
             kw = dict(tables={"seq": self._tbl_in},
@@ -572,7 +634,12 @@ class DecodeEngine:
             for i in range(self.block_size):
                 logits, self.caches = self.model.decode_step(
                     self.params, toks, self.caches, lens, **kw)
-                toks = torch.argmax(logits, dim=-1)
+                if self.temperature > 0.0:
+                    toks = sample_tokens(logits, self._step_in + i,
+                                         temperature=self.temperature,
+                                         top_k=self.top_k, seed=self.seed)
+                else:
+                    toks = torch.argmax(logits, dim=-1)
                 self._out[i].copy_(toks)
                 lens = lens + 1
 
@@ -594,8 +661,9 @@ class DecodeEngine:
         self._captures += 1
 
     def _block(self, tokens, lengths):
-        """One block from host ``tokens`` / ``lengths`` (and the block
-        tables): the static inputs are filled, the graph replayed (the
+        """One block from host ``tokens`` / ``lengths`` (the block tables,
+        and the tokens emitted before it, which key the sampling noise):
+        the static inputs are filled, the graph replayed (the
         first block on the card runs eagerly and captures it; a CPU or
         ``graphs=False`` engine runs eagerly), and the (block, slots) tokens
         reach the host once."""
@@ -603,6 +671,8 @@ class DecodeEngine:
         self._len_in.copy_(torch.from_numpy(lengths))
         if self.paged:
             self._tbl_in.copy_(torch.from_numpy(self.table_seq))
+        if self.temperature > 0.0:
+            self._step_in.fill_(self._steps)
         if self._graph is not None:
             self._graph.replay()
             _build.LAUNCHES.update(self._graph_launches)
@@ -702,6 +772,7 @@ class DecodeEngine:
                 return 0
         t0 = time.perf_counter()
         toks = self._block(self.tokens, self.lengths)  # (block, num_slots)
+        self._steps += self.block_size
         idx = np.where(self.active)[0]
         wall = time.perf_counter() - t0
         self.decode_wall_s += wall

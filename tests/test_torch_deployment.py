@@ -4,17 +4,21 @@ int8 wire compression, a chunked long prompt and a session extension that
 hits the prefix cache: per request the route, the cached prefix, the output
 tokens and the raw and quantized wire bytes equal the reference's.
 Timings are not compared.  Thresholds are frozen and the link is fat, so
-the routing telemetry does not depend on measured wall times.  Plus the
+the routing telemetry does not depend on measured wall times.  One case
+prices routing with a measured calibration (the same file for both).  Plus the
 port's launcher end to end on the CPU.  ``tests/test_torch_hybrid_serving.py``
 runs the same checks on smoke ``zamba2-1.2b``.
 """
 import functools
+import json
 
 import numpy as np
 import pytest
 import torch
 
 from _torch_parity import configs, shared_params
+from repro.analysis.calibrate import (calibration_from_points,
+                                      calibration_to_json)
 from repro.models import Model as JaxModel
 from repro.serving import CrossDCDeployment as JaxDeployment
 from repro.serving import DeploymentConfig as JaxDeploymentConfig
@@ -63,15 +67,27 @@ def _serve(dep, req_cls, batches):
     return reqs, out
 
 
-@pytest.mark.parametrize("regions", [1, 2])
-def test_deployment_matches_reference(regions, arch="kimi-linear-1t"):
+@pytest.mark.parametrize("regions,calibrated", [
+    pytest.param(1, False, id="1"), pytest.param(2, False, id="2"),
+    pytest.param(1, True, id="1-calibrated")])
+def test_deployment_matches_reference(regions, calibrated, tmp_path,
+                                      arch="kimi-linear-1t"):
     """One PD region, or two joined by a PD mesh link (requests alternate
     homes, so the session extension may find its prefix in another
-    region)."""
+    region); calibrated: the Router prices prefill with a measured-profile
+    file (``DeploymentConfig.calibration``)."""
     jcfg, tcfg, jparams, tparams = _setup(arch)
     batches = _batches(tcfg)
     kw = dict(DEP, pd_clusters=regions,
               pd_mesh_gbps=100.0 if regions > 1 else 0.0)
+    if calibrated:
+        calib = calibration_from_points(
+            [(l, 0.5 * l / (l + 600.0)) for l in (64, 256, 1024)],
+            peak_flops=2e12, mem_bw=1e11)
+        path = tmp_path / "calibration.json"
+        path.write_text(json.dumps(
+            {"calibration": calibration_to_json(calib)}))
+        kw["calibration"] = str(path)
     jdep = JaxDeployment(JaxModel(jcfg), jparams, JaxDeploymentConfig(**kw))
     dep = CrossDCDeployment(Model(tcfg), tparams, DeploymentConfig(**kw))
     jreqs, jout = _serve(jdep, JaxRequest, batches)
@@ -84,6 +100,7 @@ def test_deployment_matches_reference(regions, arch="kimi-linear-1t"):
         assert out[r.rid].output_tokens == jout[jr.rid].output_tokens, r.rid
     routes = {r.route for r in reqs}
     assert routes == {"prfaas"} | set(dep.pd_names)
+    assert dep.profile.t_prefill(150) == jdep.profile.t_prefill(150)
     assert any(r.cached_tokens > 0 for r in reqs)
     assert dep.measured_compression() == jdep.measured_compression() > 1.0
     # the link solver accumulates float bytes per time step, and its steps

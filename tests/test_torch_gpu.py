@@ -1042,9 +1042,9 @@ def _decode_engines(cuda, arch, paged):
                          cuda)
     model = Model(cfg)
 
-    def make(graphs):
+    def make(graphs, **sampling):
         return DecodeEngine(model, params, 4, 128, block_size=4, paged=paged,
-                            page_tokens=16, graphs=graphs)
+                            page_tokens=16, graphs=graphs, **sampling)
 
     return cfg, PrefillEngine(model, params, min_bucket=32), make
 
@@ -1118,3 +1118,56 @@ def test_capture_that_syncs_the_host_raises(cuda):
     with pytest.raises(RuntimeError):
         dec.warmup_block()
     assert dec.block_compiles == 0 and dec._graph is None
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("arch", ["kimi-linear-1t", "zamba2-1.2b"])
+def test_sampled_replay_matches_eager(cuda, arch, paged):
+    """At temperature 0.8, top-k 50 the replayed graph reads the step
+    counter from its static buffer: its samples equal the eager block's,
+    and differ from a second seed's."""
+    cfg, peng, make = _decode_engines(cuda, arch, paged)
+    waves = [_wave(cfg, peng, lens, w, 10 * w)
+             for w, lens in enumerate(_DECODE_LENS)]
+    outs = []
+    for graphs, seed in ((True, 3), (False, 3), (True, 4)):
+        dec = make(graphs, temperature=0.8, top_k=50, seed=seed)
+        dec.warmup_block()
+        for wave in waves:
+            assert dec.admit_many(wave) == len(wave)
+            dec.run_until_drained()
+        assert dec.block_compiles == (1 if graphs else 0)
+        outs.append({rid: r.output_tokens for rid, r in dec.outputs.items()})
+    assert len(outs[0]) == 8 and outs[0] == outs[1]
+    assert outs[0] != outs[2]
+
+
+def test_sample_hash_is_the_same_on_the_card(cuda):
+    """The sampler's integer noise is bit-identical on the CPU and the
+    card (and so are the tokens it picks from the same logits)."""
+    from repro_torch.serving.engine import sample_hash, sample_tokens
+
+    for seed, step in ((0, 0), (7, 123456), (2 ** 40 + 5, 2 ** 33 + 9)):
+        cpu = sample_hash(seed, torch.tensor(step), 8, 163840)
+        dev = sample_hash(seed, torch.tensor(step, device=cuda), 8, 163840)
+        assert torch.equal(cpu, dev.cpu())
+    logits = torch.randn((8, 4096), generator=torch.Generator()
+                         .manual_seed(0))
+    kw = dict(temperature=0.8, top_k=50, seed=1)
+    assert torch.equal(
+        sample_tokens(logits, torch.tensor(5), **kw),
+        sample_tokens(logits.to(cuda), torch.tensor(5, device=cuda),
+                      **kw).cpu())
+
+
+def test_calibration_sweep_launches_the_flash_kernel(cuda, tmp_path):
+    """The sweep's attention is the hand-written flash kernel on the card
+    (bf16), and its points lie in (0, 1]."""
+    from repro_torch.analysis import calibrate
+
+    build.reset_launches()
+    out = calibrate.sweep(str(tmp_path / "cal.json"), cuda, torch.bfloat16,
+                          smoke=True, lens=(256, 1024))
+    assert build.LAUNCHES["flash_attention"] > 0
+    assert all(0.0 < p["mfu"] <= 1.0 for p in out["points"])
+    assert calibrate.load_calibration(str(tmp_path / "cal.json")).points

@@ -36,7 +36,7 @@ def test_paged_deployment_matches_reference(wire):
 
 
 def test_dense_deployment_matches_reference():
-    deployment.test_deployment_matches_reference(1, arch=HYBRID)
+    deployment.test_deployment_matches_reference(1, False, None, arch=HYBRID)
 
 
 def test_launcher_serves_every_request_on_cpu():
