@@ -72,7 +72,18 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      kimi paths again sampling (temperature 0.8, top-k 50): graph and
      eager the same tokens, a second engine of the seed the same, another
      seed other tokens, temperature 1 with top-k 1 the greedy tokens, each
-     graph captured once;
+     graph captured once; then speculative decode on each model, dense and
+     paged (``check_spec``: nine prompts, one a repeated 16-token phrase,
+     into a plain graph engine, a speculative graph engine and a
+     speculative eager one, ``spec_k`` 2, one-token n-grams): replayed =
+     eager tokens, one capture each, verify rounds run, pages conserved,
+     the decode kernel launched (its launches counted from 0), the tokens
+     identical to the plain greedy ones recorded in bf16 and, after the
+     float32 conversion of phase 5, gated in float32 on mistral-nemo and
+     zamba2; one spec and one plain block profiled on mistral-nemo dense
+     and kimi paged; and kimi's prefill repeated three times and its
+     dropless MoE three, every cache leaf and every MoE output the same
+     bits (``prefill_repeatability``, gated);
   5. compare logits through the kernels with those through the plain
      versions (largest difference within 2 % of the largest |logit|): one
      prefill batch of kimi in bf16; one prefill batch and one paged decode
@@ -88,7 +99,11 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      prefill of kimi, mistral-nemo and zamba2 (``torch.profiler``: device
      busy time, the largest kernels and the flash, decode, delta and GLA
      kernels' shares); each profiled decode block (kimi's too) also as a
-     sampling graph, recorded beside the greedy one;
+     sampling graph, recorded beside the greedy one; the verify attention
+     (three decode-kernel calls at mistral-nemo's GQA shape) against its
+     one-pass plain version, gated at the bf16 tolerance; and whether a
+     row's decode output moves with another row's length
+     (``decode_batch_variance``, recorded);
   5b. the serving launcher end to end (``repro_torch.launch.serve
      .run_serve``, in-process): zamba2-1.2b at full width and depth,
      twelve requests in three batches over three PD regions, int8 wire,
@@ -97,6 +112,8 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      both routes taken, the simulator replay must agree on every route
      with no threshold moved, and flash, decode, masked GLA and quantize
      must launch; then once with live feedback, its agreement recorded;
+     then greedy and speculative (``--spec-k 2``), frozen, gated the same
+     way, its replay priced with the live acceptance;
   6. the training path on ``zamba2-1.2b`` at full width and depth: four
      AdamW steps of 2 x 2048 tokens in two microbatches with remat
      through ``make_train_step`` (the Mamba2 mixers on the unmasked GLA
@@ -1542,36 +1559,46 @@ def _replay_prompts(cfg):
     return lens, toks
 
 
+def _named_leaves(tree, path=""):
+    """[(path, tensor)] of a cache tree, in order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _named_leaves(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _named_leaves(v, f"{path}/{i}")]
+    return [(path, tree)]
+
+
 def prefill_repeatability(torch, dev, cfg, params):
     """Whether a prefill gives the same bits twice on the card: the eight
     prompts of ``check_replay`` prefilled three times in one process (the
-    first tokens and each cache leaf, bitwise, against the first run), and
-    the prefill's dropless MoE (the first MoE FFN, 4096 rows) three
-    times, then three times under ``torch.use_deterministic_algorithms``
-    (its ``index_add_`` combine sums in a fixed order there).  Recorded,
-    no gate (ROADMAP Queue C).  Not run by ``main``: a probe of that
-    fault, called on its own, e.g. ``prefill_repeatability(torch, d,
-    kimi_config(), load_params(torch, d, kimi_config(), 0))``."""
+    first tokens and each cache leaf, bitwise, against the first run; the
+    leaves that moved by name), and the prefill's dropless MoE (the first
+    MoE FFN, 4096 rows) three times, then three times under
+    ``torch.use_deterministic_algorithms``.  Gated by ``main``: every
+    repeat equal (the MoE's combine adds in a fixed order)."""
     import warnings
 
     import numpy as np
 
     from repro_torch.models import Model
     from repro_torch.models.layers import apply_moe_dropless
-    from repro_torch.models.tree import tree_leaves
     from repro_torch.serving import PrefillEngine
 
     lens, toks = _replay_prompts(cfg)
     peng = PrefillEngine(Model(cfg), params, min_bucket=128, max_bucket=4096)
     runs = [peng.prefill(toks, lens)[:2] for _ in range(3)]
+    base = _named_leaves(runs[0][1])
+    moved = sorted({p for r in runs[1:] for (p, a), (_, b) in
+                    zip(base, _named_leaves(r[1])) if not torch.equal(a, b)})
     out = {"first_tokens_equal": [bool(np.array_equal(runs[0][0], r[0]))
                                   for r in runs[1:]],
            "cache_leaves_equal": [
-               sum(bool(torch.equal(a, b)) for a, b in
-                   zip(tree_leaves(runs[0][1]), tree_leaves(r[1])))
+               sum(bool(torch.equal(a, b)) for (_, a), (_, b) in
+                   zip(base, _named_leaves(r[1])))
                for r in runs[1:]],
-           "cache_leaves": len(tree_leaves(runs[0][1]))}
-    del runs
+           "cache_leaves": len(base), "cache_leaves_moved": moved}
+    del runs, base
     gi, key, spec = next((gi, f"b{bi}", b.ffn)
                          for gi, g in enumerate(cfg.groups)
                          for bi, b in enumerate(g.blocks)
@@ -1681,6 +1708,217 @@ def check_replay(torch, dev, cfg, params, *, paged: bool,
     return res
 
 
+# speculative decode in the spec phases: two n-gram drafts a round
+SPEC = dict(spec_k=2, spec_ngram=1)
+
+
+def _spec_prompts(cfg):
+    """(lengths, right-padded tokens) of the eight ``_replay_prompts`` and
+    a ninth of a 16-token phrase repeated to 1024 tokens, on which the
+    drafter's guesses can land."""
+    import numpy as np
+    lens, toks = _replay_prompts(cfg)
+    phrase = np.random.default_rng(5).integers(0, cfg.vocab_size, 16)
+    rows = np.zeros((9, toks.shape[1]), np.int32)
+    rows[:8] = toks
+    rows[8, :1024] = np.resize(phrase, 1024)
+    return np.append(lens, 1024).astype(np.int32), rows
+
+
+def check_spec(torch, dev, cfg, params, *, launches=None, eager=True,
+               gate_identity=False, profile=()):
+    """Speculative decode on a model's dense and paged served paths: the
+    nine ``_spec_prompts``, prefilled once (budgets 16-24 tokens), are
+    admitted, for each layout, into a plain graph engine, a speculative
+    graph engine and (``eager``) a speculative eager one (``SPEC``,
+    ``graphs=False``), each of 9 slots, warmed (its capture) and drained.
+    Gated: the speculative replay emits the eager block's tokens; each
+    graph engine captures once; ``verify_rounds > 0`` and
+    ``accepted_tokens >= verify_rounds``; the paged pool conserves its
+    pages; the speculative graph launches the layout's decode kernel, its
+    launches counted from 0 (added to ``launches``).  ``gate_identity``:
+    speculative tokens must equal the plain greedy ones (float32, where
+    the decode cores are row-independent); otherwise the count of
+    identical requests and each one's first divergence are recorded.
+    ``profile``: the layouts (False: dense, True: paged) whose graph
+    engines run their first block under ``_profiled_once`` (busy ms per
+    emitted token; its wall is left out of ``decode_wall_s``).  Returns
+    {"dense": summary, "paged": summary}."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.models import Model
+    from repro_torch.serving import DecodeEngine, PrefillEngine, Request
+    from repro_torch.serving.engine import trim_request_cache
+
+    model = Model(cfg)
+    lens, toks = _spec_prompts(cfg)
+    first, caches, _ = PrefillEngine(model, params, min_bucket=128,
+                                     max_bucket=4096).prefill(toks, lens)
+    entries = [(Request(rid=i, tokens=toks[i, :L], max_new_tokens=16 + i),
+                int(first[i]), trim_request_cache(caches, i, int(L)), int(L))
+               for i, L in enumerate(lens)]
+    del caches
+    engines = {"plain": (True, {}), "spec": (True, SPEC)}
+    if eager:
+        engines["spec_eager"] = (False, SPEC)
+    out = {}
+    for paged in (False, True):
+        t0 = time.perf_counter()
+        kernel = "paged_decode_attention" if paged else "decode_attention"
+        what = f"{cfg.name} {cfg.dtype} (paged={paged}) speculative"
+        res, outs = {}, {}
+        for tag, (graphs, spec) in engines.items():
+            dec = DecodeEngine(model, params, len(entries), 2304,
+                               block_size=8, paged=paged, page_tokens=16,
+                               graphs=graphs, **spec)
+            torch.cuda.synchronize()
+            if tag == "spec":
+                build.reset_launches()
+            dec.warmup_block()
+            if dec.admit_many(entries) != len(entries):
+                fail(f"{what}: admitted too few requests")
+            prof_wall = 0.0
+            if paged in profile and graphs:
+                n0, w0 = dec.tokens_out, dec.decode_wall_s
+                pr = _profiled_once(torch, dec.step_block)
+                n = dec.tokens_out - n0
+                prof_wall = dec.decode_wall_s - w0
+                res[f"{tag}_block_profile"] = {
+                    **pr, "tokens": n,
+                    "busy_ms_per_token": pr["device_busy_ms"] / n}
+            dec.run_until_drained()
+            torch.cuda.synchronize()
+            if tag == "spec":
+                counts = dict(build.LAUNCHES)
+                res["spec_launches"] = counts
+                if counts.get(kernel, 0) <= 0:
+                    fail(f"{what}: {kernel} was not launched")
+                if launches is not None:
+                    for name, c in counts.items():
+                        launches[name] = launches.get(name, 0) + c
+            outs[tag] = {rid: r.output_tokens
+                         for rid, r in dec.outputs.items()}
+            res[f"{tag}_decode_wall_s"] = dec.decode_wall_s - prof_wall
+            res[f"{tag}_tokens_out"] = dec.tokens_out
+            if graphs:
+                caps = dec.spec_compiles if spec else dec.block_compiles
+                if caps != 1:
+                    fail(f"{what}: the {tag} engine captured {caps} times")
+                res[f"{tag}_launches_per_replay"] = dict(
+                    dec._graph_launches or {})
+            if spec:
+                if not (dec.verify_rounds > 0
+                        and dec.accepted_tokens >= dec.verify_rounds):
+                    fail(f"{what}: {dec.verify_rounds} rounds, "
+                         f"{dec.accepted_tokens} tokens accepted")
+                res[f"{tag}_verify_rounds"] = dec.verify_rounds
+                res[f"{tag}_accepted_tokens"] = dec.accepted_tokens
+                res[f"{tag}_accepted_tokens_per_dispatch"] = \
+                    dec.accepted_tokens_per_dispatch
+            if paged:
+                s = dec.pool.stats
+                if s["allocated"] != (s["freed"] + s["evicted"]
+                                      + dec.pool.resident):
+                    fail(f"{what}: pool pages not conserved: {s}")
+                res[f"{tag}_pool"] = {**s, "resident": dec.pool.resident}
+            del dec
+            gc_cuda(torch)
+        if eager and outs["spec"] != outs["spec_eager"]:
+            bad = [r for r in outs["spec"]
+                   if outs["spec"][r] != outs["spec_eager"][r]]
+            fail(f"{what}: replayed tokens differ from the eager block's on "
+                 f"requests {bad}")
+        same, first_div = 0, {}
+        for rid, want in outs["plain"].items():
+            got = outs["spec"][rid]
+            if got == want:
+                same += 1
+            else:
+                first_div[rid] = next(
+                    (i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                    min(len(got), len(want)))
+        res["requests"] = len(outs["plain"])
+        res["requests_identical_to_plain"] = same
+        res["first_divergence"] = first_div
+        if gate_identity and same != len(outs["plain"]):
+            fail(f"{what}: speculative tokens differ from the plain greedy "
+                 f"ones (request: first differing index) {first_div}")
+        res["decode_wall_s_per_token"] = {
+            t: res[f"{t}_decode_wall_s"] / res[f"{t}_tokens_out"]
+            for t in ("plain", "spec")}
+        res["wall_s"] = time.perf_counter() - t0
+        out["paged" if paged else "dense"] = res
+        print(f"spec {cfg.name} {cfg.dtype} paged={paged}: "
+              f"{res['wall_s']:.1f} s, identical "
+              f"{same}/{len(outs['plain'])}, accepted/round "
+              f"{res['spec_accepted_tokens_per_dispatch']:.4f}, decode s "
+              f"plain {res['plain_decode_wall_s']:.3f} spec "
+              f"{res['spec_decode_wall_s']:.3f}", flush=True)
+    return out
+
+
+def decode_batch_variance(torch, dev):
+    """Whether a row's decode output depends on the other rows' lengths:
+    the decode kernel (row 2) on eight rows, then again with row 1's length
+    changed; row 0's output compared bit for bit.  bf16 at mistral-nemo's
+    GQA and kimi's MLA shapes (the Hopper core splits the live tiles of
+    all rows over its workers), float32 at the GQA shape (the SIMT core
+    splits each row by its own length).  Recorded, no gate."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for tag, dtype, Hq, Hkv, Dk, Dv, S in (
+            ("gqa_bf16", torch.bfloat16, 32, 8, 128, 128, 4096),
+            ("mla_bf16", torch.bfloat16, 64, 1, 536, 472, 4096),
+            ("gqa_f32", torch.float32, 32, 8, 128, 128, 4096)):
+        q = torch.randn((8, Hq, Dk), generator=g, device=dev).to(dtype)
+        k = torch.randn((8, Hkv, S, Dk), generator=g, device=dev).to(dtype)
+        v = torch.randn((8, Hkv, S, Dv), generator=g, device=dev).to(dtype)
+        lens = torch.tensor([3000, 1200, 2600, 900, 4000, 150, 3300, 2048],
+                            dtype=torch.int32, device=dev)
+        a = ops.decode_attention(q, k, v, lens)
+        lens2 = lens.clone()
+        lens2[1] += 700
+        b = ops.decode_attention(q, k, v, lens2)
+        torch.cuda.synchronize()
+        out[tag] = {"row0_bits_moved": not torch.equal(a[0], b[0]),
+                    "row0_max_abs_diff": float((a[0].float()
+                                                - b[0].float()).abs().max()),
+                    "rows_moved_of_7_unchanged": int(sum(
+                        not torch.equal(a[i], b[i]) for i in range(8)
+                        if i != 1))}
+    return out
+
+
+def check_verify(torch, dev):
+    """The verify attention on the card (``ops.verify_attention``: three
+    calls of the decode kernel) against its one-pass plain version at
+    mistral-nemo's GQA shape, bf16: B 8, Hq 32, Hkv 8, Q 3, D 128, S 4096,
+    ragged lengths; gated at ``TOL_BF16``, timed beside the plain pass."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attn import verify_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    bf = torch.bfloat16
+    q = torch.randn((8, 32, 3, 128), generator=g, device=dev).to(bf)
+    k = torch.randn((8, 8, 4096, 128), generator=g, device=dev).to(bf)
+    v = torch.randn((8, 8, 4096, 128), generator=g, device=dev).to(bf)
+    lens = torch.tensor([4096, 3001, 2500, 1800, 1024, 700, 97, 4094],
+                        dtype=torch.int32, device=dev)
+    got = ops.verify_attention(q, k, v, lens)
+    want = verify_attention_ref(q, k, v, lens)
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), atol=TOL_BF16[0],
+                          rtol=TOL_BF16[1]):
+        fail(f"verify_attention disagrees with its plain version: max abs "
+             f"error {err:.3e}")
+    return {"max_abs_err": err,
+            "ms": _ms(lambda: ops.verify_attention(q, k, v, lens), 20),
+            "plain_ms": _ms(lambda: verify_attention_ref(q, k, v, lens), 5)}
+
+
 def calibration(torch, dev):
     """Phase 3b: the measured calibration of this card
     (``repro_torch.analysis.calibrate.sweep`` in bf16: a matmul and a
@@ -1737,14 +1975,22 @@ def launcher(torch, dev, calibration_path):
     route and no threshold moved on either side, and flash, decode, masked
     GLA and quantize launched.  Then once more with live congestion
     feedback, its agreement recorded (no gate: the reference expects >=
-    0.9 there, and it follows wall times).  Returns the two summaries and
-    the frozen run's launches."""
+    0.9 there, and it follows wall times).  Then greedy and speculative
+    (``--spec-k 2 --spec-ngram 1``), frozen: the same gates, and the
+    replay's ``spec_accept_rate`` the live acceptance less 1.  Returns the
+    three summaries and the frozen runs' launches."""
     from repro_torch.kernels import build
     from repro_torch.launch import serve
 
     out, launches = {}, {}
-    for tag, frozen in (("launcher_frozen", True), ("launcher_live", False)):
-        argv = list(LAUNCHER_ARGS) + ["--calibration", str(calibration_path)]
+    # the greedy speculative run drops the sampling arguments (the last four)
+    greedy_spec = list(LAUNCHER_ARGS[:-4]) + ["--spec-k", str(SPEC["spec_k"]),
+                                              "--spec-ngram",
+                                              str(SPEC["spec_ngram"])]
+    for tag, frozen, base in (("launcher_frozen", True, LAUNCHER_ARGS),
+                              ("launcher_live", False, LAUNCHER_ARGS),
+                              ("launcher_spec", True, greedy_spec)):
+        argv = list(base) + ["--calibration", str(calibration_path)]
         if frozen:
             argv.append("--freeze-thresholds")
         args = serve.build_parser().parse_args(argv)
@@ -1768,12 +2014,16 @@ def launcher(torch, dev, calibration_path):
                    "tokens_out": sum(len(o.output_tokens)
                                      for o in outs.values()),
                    "truncations": rep["deployment"]["truncations"],
+                   "accepted_tokens_per_dispatch":
+                       rep["deployment"]["accepted_tokens_per_dispatch"],
+                   "spec_accept_rate": cv["spec_accept_rate"],
                    "launches": counts}
         out[tag] = summary
         print(f"{tag}: {wall:.1f} s, routes {routes}, agreement "
               f"{cv['route_agreement']}, launches {counts}", flush=True)
         if frozen:
-            launches = counts
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
             for r in reqs:
                 o = outs.get(r.rid)
                 if o is None or len(o.output_tokens) != 1 + r.max_new_tokens:
@@ -1790,6 +2040,12 @@ def launcher(torch, dev, calibration_path):
             require_launched(counts, ("flash_attention", "decode_attention",
                                       "gla_chunked_fused",
                                       "quantize_int8_fused"), tag)
+        if base is greedy_spec:
+            apd = rep["deployment"]["accepted_tokens_per_dispatch"]
+            if cv["spec_accept_rate"] != apd - 1.0:
+                fail(f"launcher: the replay's spec_accept_rate "
+                     f"{cv['spec_accept_rate']} is not the live acceptance "
+                     f"{apd} - 1")
         del rep, reqs, outs
         gc_cuda(torch)
     return out, launches
@@ -1874,6 +2130,9 @@ def zamba2_paths(torch, dev, paths, launches):
         paths[f"{tag}_replay"] = check_replay(torch, dev, cfg, params,
                                               paged=paged)
         print(f"{tag}_replay: {paths[f'{tag}_replay']}", flush=True)
+    for layout, res in check_spec(torch, dev, cfg, params,
+                                  launches=launches).items():
+        paths[f"zamba2_{layout}_spec"] = res
     paths["zamba2_decode_profile"] = profile_decode_block(torch, dev, cfg,
                                                           params)
     paths["zamba2_prefill_profile"] = profile_prefill(torch, dev, cfg,
@@ -1893,6 +2152,9 @@ def zamba2_paths(torch, dev, paths, launches):
         torch, bf16, f32["plain"])
     paths["zamba2_paged_step_f32"] = compare_paged_step(torch, dev, cfg,
                                                         params)
+    for layout, res in check_spec(torch, dev, cfg, params, eager=False,
+                                  gate_identity=True).items():
+        paths[f"zamba2_{layout}_spec_f32"] = res
 
 
 def _grad_gap(torch, got, want):
@@ -2163,6 +2425,10 @@ def main():
     grad_checks = check_grads(torch, dev)
     print(f"training-shape op checks (forward error; gradient difference "
           f"/ largest gradient): {grad_checks}", flush=True)
+    verify = check_verify(torch, dev)
+    batch_variance = decode_batch_variance(torch, dev)
+    print(f"verify_attention: {verify}; decode batch variance: "
+          f"{batch_variance}", flush=True)
     torch.cuda.empty_cache()
     calib = calibration(torch, dev)
     gc_cuda(torch)
@@ -2193,6 +2459,18 @@ def main():
             torch, dev, cfg, params, paged=paged, sampled=True)
         print(f"{tag}_replay_sampled: {paths[f'{tag}_replay_sampled']}",
               flush=True)
+    for layout, res in check_spec(torch, dev, cfg, params,
+                                  launches=launches, profile=(True,)).items():
+        paths[f"kimi_{layout}_spec"] = res
+    rep = prefill_repeatability(torch, dev, cfg, params)
+    paths["kimi_prefill_repeatability"] = rep
+    print(f"kimi_prefill_repeatability: {rep}", flush=True)
+    if rep["cache_leaves_moved"] or not all(rep["first_tokens_equal"]):
+        fail(f"kimi's prefill is not repeatable: leaves "
+             f"{rep['cache_leaves_moved']} moved, first tokens equal "
+             f"{rep['first_tokens_equal']}")
+    if not all(rep["moe_repeats_equal"]):
+        fail(f"the dropless MoE is not repeatable: {rep}")
     paths["kimi_decode_profile"] = profile_decode_block(torch, dev, cfg,
                                                         params)
     print(f"kimi_decode_profile: sampled - greedy "
@@ -2225,6 +2503,9 @@ def main():
                                                  paged=True)
     print(f"mistral_paged_replay: {paths['mistral_paged_replay']}",
           flush=True)
+    for layout, res in check_spec(torch, dev, cfg, params,
+                                  launches=launches, profile=(False,)).items():
+        paths[f"mistral_{layout}_spec"] = res
     paths["mistral_decode_profile"] = profile_decode_block(torch, dev, cfg,
                                                            params)
     paths["mistral_prefill_profile"] = profile_prefill(torch, dev, cfg,
@@ -2248,6 +2529,12 @@ def main():
     paths["mistral_logits_f32"] = compare_logits(torch, dev, cfg, params)
     paths["mistral_paged_step_f32"] = compare_paged_step(torch, dev, cfg,
                                                          params)
+    gc_cuda(torch)
+    # speculative tokens against the plain greedy ones where the decode
+    # cores are row-independent: float32
+    for layout, res in check_spec(torch, dev, cfg, params, eager=False,
+                                  gate_identity=True).items():
+        paths[f"mistral_{layout}_spec_f32"] = res
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2281,6 +2568,8 @@ def main():
           f"{summary['launches']}", flush=True)
     paths["calibration"] = calib
     paths["gradient_checks"] = grad_checks
+    paths["verify_attention"] = verify
+    paths["decode_batch_variance"] = batch_variance
     paths["decode_ptxas"] = decode_ptxas
     paths["delta_ptxas"] = delta_ptxas
     paths["gla_ptxas"] = gla_ptxas

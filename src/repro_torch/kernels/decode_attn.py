@@ -54,6 +54,35 @@ def decode_attention_ref(q, k_cache, v_cache, lengths, *, window: int = 0,
     return out.reshape(B, Hq, Dv).to(q.dtype)
 
 
+def verify_attention_ref(q, k_cache, v_cache, lengths, *,
+                         scale: float | None = None):
+    """Speculative-verify attention, the plain version of the reference's
+    ``src/repro/kernels/ref.py::verify_attention_ref``: q (B, Hq, Q, Dk),
+    Q candidate positions a row; caches (B, Hkv, S, Dk/Dv); position j of
+    row b sees ``min(lengths[b] + j, S)`` keys (``lengths`` is the first
+    position's key count, context + 1).  One masked pass over the
+    un-repeated cache scores every position; rows past a position's count
+    get -inf before the softmax, so rows the verify pre-writes for later
+    positions add exactly 0.  Returns (B, Hq, Q, Dv) in q's dtype."""
+    B, Hq, Q, D = q.shape
+    _, Hkv, S, _ = k_cache.shape
+    Dv = v_cache.shape[-1]
+    G = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    qf = (q.float() * scale).reshape(B, Hkv, G, Q, D)
+    scores = torch.einsum("bngqd,bnkd->bngqk", qf, k_cache.float())
+    kpos = torch.arange(S, device=q.device)
+    eff = torch.clamp(lengths.to(q.device)[:, None]
+                      + torch.arange(Q, device=q.device)[None], max=S)
+    mask = kpos[None, None] < eff[:, :, None]                 # (B, Q, S)
+    scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(mask.any(-1)[:, None, None, :, None], probs, 0.0)
+    out = torch.einsum("bngqk,bnkd->bngqd", probs, v_cache.float())
+    return out.reshape(B, Hq, Q, Dv).to(q.dtype)
+
+
 def _heads_per_block(group: int, Dv: int) -> int:
     for g in (16, 8, 4, 2, 1):
         if group % g == 0 and g * Dv <= 8192:

@@ -185,6 +185,26 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window=0, scale=None,
         window=window, scale=scale)
 
 
+def verify_attention(q, k_cache, v_cache, lengths, *, scale=None,
+                     use_kernel=True):
+    """Speculative-verify attention over Q candidate positions. q:
+    (B,Hq,Q,Dk); caches (B,Hkv,S,Dk/Dv); position j sees ``min(lengths +
+    j, S)`` keys (``lengths`` = context + 1, the first position's count).
+    The plain version scores all Q positions in one masked pass; the
+    kernel path makes Q calls of the flash-decode kernel (row 2), as the
+    reference's kernel path does (``src/repro/kernels/ops.py:296-314``),
+    so the card's numerics are the one-token decode's."""
+    if _plain(use_kernel, q):
+        return _decode.verify_attention_ref(q, k_cache, v_cache, lengths,
+                                            scale=scale)
+    S = k_cache.shape[2]
+    lengths = lengths.to(device=q.device, dtype=torch.int32)
+    return torch.stack([
+        decode_attention(q[:, :, j], k_cache, v_cache,
+                         torch.clamp(lengths + j, max=S), scale=scale)
+        for j in range(q.shape[2])], dim=2)
+
+
 def paged_decode_attention(q, k_pages, v_pages, tables, lengths, *,
                            window=0, scale=None, use_kernel=True):
     """One-query attention over a shared page pool. q: (B,Hq,Dk); pools

@@ -16,7 +16,8 @@ the abundant/scarce bandwidth regime, and the live TTFT/egress are upper
 bounds (the deployment reships the full prefill cache on a cached prefix).
 
 Weights are drawn from ``--seed``.  Decode is greedy unless
-``--temperature`` is set (``--top-k`` keeps the k largest logits);
+``--temperature`` is set (``--top-k`` keeps the k largest logits), and
+speculative with ``--spec-k`` draft tokens a round (greedy only);
 ``--calibration`` prices routing and the replay with a measured profile
 (``python -m repro_torch.analysis.calibrate --sweep``).  Runs on the card
 unless ``--device cpu`` is given.
@@ -83,6 +84,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="decode sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0,
                     help="sample from the top-k logits (0 = full vocab)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative draft tokens per verify round "
+                         "(0 = plain decode; greedy only)")
+    ap.add_argument("--spec-ngram", type=int, default=2,
+                    help="drafter suffix-match length")
     ap.add_argument("--tbt-slo", type=float, default=0.0)
     ap.add_argument("--batch-gap-s", type=float, default=120.0)
     ap.add_argument("--max-new-tokens", type=int, default=8)
@@ -165,11 +171,11 @@ def cross_validate(args, model_cfg, dep: CrossDCDeployment, trace,
     sc = SystemConfig(1, k, k, dep.system.b_out, float(args.threshold),
                       kv_wire_compression=ratio)
     horizon = trace[-1][0] + args.batch_gap_s + 60.0
-    # the reference prices speculation with the live run's measured
-    # acceptance; speculative decode is not ported yet (ROADMAP A8), so
-    # the live run is plain decode and the rate is 0.0, as the reference's
-    # is with speculation off
-    accept_rate = 0.0
+    # price speculation with the live run's measured acceptance: mean
+    # accepted draft tokens per verify round (0.0 with speculation off)
+    rounds = sum(d.verify_rounds for d in dep.decoders.values())
+    accepted = sum(d.accepted_tokens for d in dep.decoders.values())
+    accept_rate = (accepted / rounds - 1.0) if rounds else 0.0
     sim = PrfaasSimulator(tm, sc, w, SimConfig(
         arrival_rate=1.0, sim_time=horizon, seed=args.seed,
         link_gbps=args.link_gbps, pd_clusters=k,
@@ -237,7 +243,8 @@ def run_serve(args) -> dict:
         decode_block_size=args.decode_block_size,
         max_prefill_bucket=args.max_prefill_bucket,
         temperature=args.temperature, top_k=args.top_k,
-        sample_seed=args.seed, tbt_slo_s=args.tbt_slo,
+        sample_seed=args.seed, spec_k=args.spec_k,
+        spec_ngram=args.spec_ngram, tbt_slo_s=args.tbt_slo,
         calibration=args.calibration)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = init_params(cfg, gen, args.device)

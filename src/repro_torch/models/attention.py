@@ -7,7 +7,9 @@ serves, self-attention only:
   * GQA (``kind="full"``): prefill and prefill chunks attend through the
     flash kernel; dense decode through the flash-decode kernel, paged
     decode through the paged flash-decode kernel, and a prefix-hit suffix
-    chunk over pool pages + dense suffix through the paged-prefill kernel.
+    chunk over pool pages + dense suffix through the paged-prefill kernel;
+    a speculative verify's q positions (dense) through the flash-decode
+    kernel once a position.
   * MLA: prefill decompresses K/V into MHA form (flash kernel); decode runs
     the absorbed form, MQA over the latent cache (flash-decode kernel, or
     the paged one over the latent pools).
@@ -128,6 +130,38 @@ def gqa_decode(p, x, spec: AttentionSpec, cache, lengths, *,
                              vbuf.transpose(1, 2), eff_len,
                              use_kernel=use_kernels)
     y = _merge_heads(o[:, :, None]) @ p["wo"]["w"]
+    return y, {"k": kbuf, "v": vbuf}
+
+
+def gqa_decode_verify(p, x, spec: AttentionSpec, cache, lengths, *,
+                      use_kernels=True):
+    """Speculative verify for append-only full attention: the current
+    token and k drafts, x (B, Q, d), in one pass.  All Q positions are
+    projected and rotated at once, their K/V written in place at
+    ``lengths + j``, then :func:`ops.verify_attention` scores position j
+    over ``min(lengths + 1 + j, S_cap)`` keys, so a row written for a
+    later position adds exactly 0.  A position past the buffer keeps the
+    row's content (the reference drops that write; the row, ``pos % S``,
+    is distinct from the slot's other positions while Q <= S, so one
+    ``index_put_`` has no duplicate index).  Returns (y (B, Q, d),
+    cache)."""
+    _check(spec)
+    B, Q, _ = x.shape
+    pos = (lengths.to(x.device).long()[:, None]
+           + torch.arange(Q, device=x.device)[None])          # (B, Q)
+    q, k, v = _gqa_qkv(p, x, spec, pos)
+    kbuf, vbuf = cache["k"], cache["v"]
+    S = kbuf.shape[1]
+    rows = torch.arange(B, device=x.device)[:, None]
+    at = pos % S
+    keep = (pos < S)[..., None, None]
+    for buf, new in ((kbuf, k), (vbuf, v)):
+        buf[rows, at] = torch.where(keep, new.transpose(1, 2).to(buf.dtype),
+                                    buf[rows, at])
+    o = ops.verify_attention(q, kbuf.transpose(1, 2), vbuf.transpose(1, 2),
+                             lengths.to(x.device) + 1,
+                             use_kernel=use_kernels)          # (B,H,Q,D)
+    y = _merge_heads(o) @ p["wo"]["w"]
     return y, {"k": kbuf, "v": vbuf}
 
 

@@ -53,8 +53,12 @@ def apply_ffn(p, x, spec: FFNSpec):
 def apply_moe_dropless(p, x, spec: FFNSpec):
     """Exact (dropless) top-k MoE.  Tokens are sorted by expert and each
     expert's contiguous run goes through a plain ``torch.matmul`` (the
-    reference's ``lax.ragged_dot`` grouped GEMM), then scatter-added back
-    weighted by the softmaxed gate logits."""
+    reference's ``lax.ragged_dot`` grouped GEMM).  The combine adds each
+    token's k gate-weighted rows in ascending expert id, one add at a time
+    in the activation dtype: the order of the reference's sorted
+    ``.at[st].add`` and of the CPU's ``index_add_``, fixed on every device
+    (CUDA's ``index_add_`` atomics add in no fixed order, so its bits
+    would change from call to call)."""
     shape = x.shape
     d = shape[-1]
     x2 = x.reshape(-1, d)
@@ -80,8 +84,15 @@ def apply_moe_dropless(p, x, spec: FFNSpec):
                 h = h * (xe @ p["w3"][e])
             ys[lo:lo + n] = h @ p["w2"][e]
         lo += n
-    out = torch.zeros((T, d), dtype=ys.dtype, device=x.device).index_add_(
-        0, st, ys * sg[:, None].to(ys.dtype))
+    ys = ys * sg[:, None].to(ys.dtype)
+    # each token's rows in the sorted order: its experts are distinct, so
+    # ascending sorted positions are ascending expert ids
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(T * k, device=x.device)
+    rows = ys[torch.sort(inv.reshape(T, k), dim=1).values]    # (T, k, d)
+    out = torch.zeros((T, d), dtype=ys.dtype, device=x.device)
+    for j in range(k):
+        out = out + rows[:, j]
     return _with_shared(p, out, x2, spec).reshape(shape)
 
 

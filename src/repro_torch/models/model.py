@@ -1,6 +1,6 @@
-"""Model API: prefill / prefill_chunk / last_logits / decode_step of the
-serving path, train_loss of the training path, plus the decode cache
-builders.
+"""Model API: prefill / prefill_chunk / last_logits / decode_step and the
+speculative decode_verify / commit_verify of the serving path, train_loss
+of the training path, plus the decode cache builders.
 
 Counterpart of ``src/repro/models/model.py``.  Parameters are the
 reference's tree as plain dicts of tensors (``repro_torch.params``), with
@@ -90,6 +90,9 @@ def _stack(trees):
 # leaves of a table-direct prior (``paged.build_prior``) that pass through a
 # chunk unchanged: the whole stacked pool, never restacked
 _PRIOR_LEAVES = ("pk", "pv", "tbl", "off")
+# sequence leaves of the attention blocks: a speculative verify's rejected
+# rows in them are rewritten before they are read, so they need no rollback
+_ATTN_LEAVES = ("k", "v", "ckv", "kpe")
 
 
 def _stack_reps(reps, prior):
@@ -315,7 +318,16 @@ class Model:
         int32}`` on the device; ``caches`` then holds page-pool leaves
         (``models/paged.py``) and ``page_tokens`` / ``capacity`` give the
         page size and the slot capacity."""
-        x = params["embed"][tokens[:, None]]
+        x = self._each_block(
+            params, params["embed"][tokens[:, None]], caches,
+            lambda b, p, x, cur: self._decode_block(
+                b, p, x, cur, lengths, tables, page_tokens, capacity))
+        return self._logits(params, x)[:, 0], caches
+
+    def _each_block(self, params, x, caches, block):
+        """Every block invocation in order, ``x, new = block(spec, p, x,
+        cache)`` on its repeat's cache views; a leaf ``block`` returns
+        anew is copied into the stacked cache.  Returns x."""
         for gi, (g, gp) in enumerate(zip(self.cfg.groups, params["groups"])):
             gc = caches["groups"][gi]
             for r in range(g.repeats):
@@ -323,12 +335,96 @@ class Model:
                 for bi, b in enumerate(g.blocks):
                     key = f"b{bi}"
                     cur = _rep(gc[key], r)
-                    x, new = self._decode_block(b, pr[key], x, cur, lengths,
-                                                tables, page_tokens, capacity)
+                    x, new = block(b, pr[key], x, cur)
                     for name, t in new.items():
                         if t.data_ptr() != cur[name].data_ptr():
                             gc[key][name][r].copy_(t)
-        return self._logits(params, x)[:, 0], caches
+        return x
+
+    # ------------------------------------------------- speculative verify
+    @property
+    def _verify_parallel(self) -> bool:
+        """Every block append-only full attention with a dense FFN: the
+        shape where one pass scores the q positions and nothing needs
+        rollback (the reference's ``Model._verify_parallel``)."""
+        return all(isinstance(b.mixer, AttentionSpec)
+                   and b.mixer.kind == "full" and b.ffn.kind == "dense"
+                   for g in self.cfg.groups for b in g.blocks)
+
+    def verify_buffers(self, caches, q: int):
+        """The snapshot buffers a scan verify of ``q`` positions fills, in
+        the caches' group structure: for every O(1) mixer leaf (``state``,
+        ``conv``; attention leaves need no rollback) a zeroed ``(q - 1, R,
+        B, ...)`` buffer, to hold the leaf after each step but the last
+        (the last is the leaf itself).  A model of attention blocks alone
+        gets none."""
+        return [{key: {n: torch.zeros((q - 1,) + leaf.shape,
+                                      dtype=leaf.dtype, device=leaf.device)
+                       for n, leaf in leaves.items()
+                       if n not in _ATTN_LEAVES}
+                 for key, leaves in gc.items()}
+                for gc in caches["groups"]]
+
+    def decode_verify(self, params, seq, caches, lengths, tables=None,
+                      page_tokens=None, capacity=None, pending=None):
+        """Score ``q`` candidate positions per slot: ``seq`` (B, q) holds
+        each slot's current token, then its drafts.  Returns (logits (B, q,
+        V) float32, caches, pending), the caches written in place.
+
+        Dense append-only full attention (:attr:`_verify_parallel`) takes
+        one pass over the q positions (:func:`attention.gqa_decode_verify`).
+        Everything else (linear and hybrid mixers, MLA, the paged layout)
+        runs q steps of the exact :meth:`decode_step`, copying every O(1)
+        mixer leaf after each step but the last into ``pending`` (from
+        :meth:`verify_buffers`, allocated here when not given), so
+        :meth:`commit_verify` can rewind each slot to its accepted step.
+        The attention leaves need no rollback: a rejected row is rewritten
+        before any kept token reads it."""
+        q = seq.shape[1]
+        if pending is None:
+            pending = self.verify_buffers(caches, q)
+        if tables is None and self._verify_parallel:
+            def block(b, p, x, cur):
+                y, new = attn_mod.gqa_decode_verify(
+                    p["mixer"], rms_norm(x, p["ln1"], self.cfg.norm_eps),
+                    b.mixer, cur, lengths, use_kernels=self.use_kernels)
+                return self._ffn(b, p, x + y, decode=True), new
+
+            x = self._each_block(params, params["embed"][seq], caches, block)
+            return self._logits(params, x), caches, pending
+        logits = []
+        for j in range(q):
+            lg, caches = self.decode_step(params, seq[:, j], caches,
+                                          lengths + j, tables, page_tokens,
+                                          capacity)
+            logits.append(lg)
+            if j < q - 1:
+                for gc, sg in zip(caches["groups"], pending):
+                    for key, leaves in sg.items():
+                        for name, buf in leaves.items():
+                            buf[j].copy_(gc[key][name])
+        return torch.stack(logits, dim=1), caches, pending
+
+    def commit_verify(self, caches, pending, accept):
+        """Rewind every O(1) mixer leaf, in place, to its state after step
+        ``accept[b]`` of the verify that filled ``pending`` (step j is kept
+        iff ``j <= accept[b]``); with no O(1) leaf (an attention model)
+        there is nothing to rewind.  (The reference's also takes the
+        lengths and tables, for its SWA ring rollback; SWA is not
+        ported.)"""
+        accept = accept.long()
+        for gc, sg in zip(caches["groups"], pending):
+            for key, leaves in sg.items():
+                for name, snaps in leaves.items():
+                    cur = gc[key][name]                       # (R, B, ...)
+                    last = snaps.shape[0]                     # q - 1
+                    B = cur.shape[1]
+                    got = snaps[torch.clamp(accept, max=last - 1), :,
+                                torch.arange(B, device=cur.device)]
+                    keep = (accept >= last).reshape(
+                        (1, B) + (1,) * (cur.dim() - 2))
+                    cur.copy_(torch.where(keep, cur, got.transpose(0, 1)))
+        return caches
 
     def init_cache(self, batch_size: int, capacity: int, device):
         """Zeroed decode cache buffers of sequence capacity ``capacity``."""

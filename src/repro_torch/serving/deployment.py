@@ -1,9 +1,9 @@
 """Multi-region PrfaaS-PD deployment, in-process: the paper's cross-DC
 serving loop on the port's engines.
 
-Counterpart of ``src/repro/serving/deployment.py``, greedy or sampled
-decode (``temperature``, ``top_k``, ``sample_seed``) over the dense or the
-paged KV layout.  A shared PrfaaS ``PrefillEngine`` takes long requests,
+Counterpart of ``src/repro/serving/deployment.py``, greedy, sampled
+(``temperature``, ``top_k``, ``sample_seed``) or speculative (``spec_k``,
+``spec_ngram``) decode over the dense or the paged KV layout.  A shared PrfaaS ``PrefillEngine`` takes long requests,
 each of N PD regions runs its own ``RegionScheduler`` (local prefill on a
 shared PD ``PrefillEngine``, its own ``DecodeEngine``).  Routing, prefix
 caches, the global KV manager and the inter-DC link topology are the
@@ -31,7 +31,7 @@ with ``calibration`` (a sweep's JSON from
 ``python -m repro_torch.analysis.calibrate --sweep``) with the measured
 ``CalibratedProfile`` of the machine that ran the sweep, an H100 on the
 card.  ``launch.serve --cross-validate`` prices its simulator replay with
-the same profile.  Speculative decode raises ``NotImplementedError``.
+the same profile.
 """
 from __future__ import annotations
 
@@ -79,7 +79,8 @@ class DeploymentConfig:
     temperature: float = 0.0           # 0 = greedy (bit-identical default)
     top_k: int = 0                     # 0 = full vocab when sampling
     sample_seed: int = 0               # decode sampling noise seed
-    spec_k: int = 0                    # speculative decode (not ported)
+    spec_k: int = 0                    # speculative draft tokens per round
+    spec_ngram: int = 2                # drafter suffix-match length
     tbt_slo_s: float = 0.0             # TBT SLO for attainment (0 = off)
     block_tokens: int = 16
     pool_blocks: int = 4096
@@ -122,7 +123,7 @@ class CrossDCDeployment:
                                seed=cfg.sample_seed, paged=cfg.paged_kv,
                                pool=pools.get(name),
                                page_tokens=cfg.block_tokens,
-                               spec_k=cfg.spec_k)
+                               spec_k=cfg.spec_k, spec_ngram=cfg.spec_ngram)
             for name in self.pd_names}
         self.schedulers: Dict[str, RegionScheduler] = {
             name: RegionScheduler(self.pd_prefill, self.decoders[name],
@@ -385,6 +386,8 @@ class CrossDCDeployment:
                 "occupancy": sched.occupancy(),
                 "goodput_tok_s": sched.goodput_tok_s(),
                 "max_admit_wait": sched.max_admit_wait,
+                "accepted_tokens_per_dispatch":
+                    dec.accepted_tokens_per_dispatch,
                 **self._tbt_stats(dec.tbt_s, self.cfg.tbt_slo_s),
             }
             if self.cfg.paged_kv:
@@ -402,6 +405,8 @@ class CrossDCDeployment:
         span = sum(self.cfg.decode_slots * s.wall_s
                    for s in self.schedulers.values())
         all_tbt = [t for d in self.decoders.values() for t in d.tbt_s]
+        rounds = sum(d.verify_rounds for d in self.decoders.values())
+        accepted = sum(d.accepted_tokens for d in self.decoders.values())
         return {
             "requests": len(done),
             "offloaded": sum(1 for r in done if r.route == PRFAAS),
@@ -422,6 +427,8 @@ class CrossDCDeployment:
             "occupancy": busy / span if span > 0 else 0.0,
             "goodput_tok_s": sum(s.goodput_tok_s()
                                  for s in self.schedulers.values()),
+            "accepted_tokens_per_dispatch": (accepted / rounds if rounds
+                                             else 1.0),
             **self._tbt_stats(all_tbt, self.cfg.tbt_slo_s),
             "wire_compression": self.measured_compression(),
             "clusters": per_region,

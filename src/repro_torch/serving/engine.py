@@ -1,14 +1,13 @@
 """Continuously-batched region engine: bucketed / chunked prefill, slot-based
 decode and the region scheduler that interleaves them.
 
-Counterpart of ``src/repro/serving/engine.py`` for greedy and sampled
-decode over the dense or the paged KV layout (speculative decode is a later
-slice and raises ``NotImplementedError``).  The reference compiles one
-program per shape; PyTorch runs prefill eagerly, so the bucket grid there
-bounds padding and keeps tokens identical to the reference, and
-``compiles`` counts the distinct shapes run.  The reference's jitted
-decode block (a ``lax.scan``) is, on the card, one CUDA graph per
-``DecodeEngine``, captured once and replayed every block.
+Counterpart of ``src/repro/serving/engine.py`` for greedy, sampled and
+speculative decode over the dense or the paged KV layout.  The reference
+compiles one program per shape; PyTorch runs prefill eagerly, so the
+bucket grid there bounds padding and keeps tokens identical to the
+reference, and ``compiles`` counts the distinct shapes run.  The
+reference's jitted decode block (a ``lax.scan``) is, on the card, one CUDA
+graph per ``DecodeEngine``, captured once and replayed every block.
 
   * ``PrefillEngine``: pow2 length x batch buckets with exact per-row
     ``lengths``; prompts past ``max_bucket`` run as ``ChunkedPrefill``
@@ -22,9 +21,11 @@ decode block (a ``lax.scan``) is, on the card, one CUDA graph per
     decode steps with the next token (the argmax, or a sample at
     ``temperature > 0``, :func:`sample_tokens`) fed back on the device and
     one host sync per block (on the card a replay of the captured graph),
-    ``step`` one eager greedy token.  ``warmup_admission`` /
-    ``warmup_block`` (called by ``PrefillEngine.warmup``) run admission
-    and the block once before traffic; the latter is the capture.
+    or at ``spec_k > 0`` ``block_size`` greedy verify rounds of
+    ``spec_k`` n-gram drafts each (one graph too), ``step`` one eager
+    greedy token.  ``warmup_admission`` / ``warmup_block`` (called by
+    ``PrefillEngine.warmup``) run admission and the block once before
+    traffic; the latter is the capture.
   * ``RegionScheduler``: admit ready requests -> one prefill unit -> one
     decode block, per tick; ``stats()`` as the reference's.
 """
@@ -36,6 +37,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.blockpool import PREFIX, BlockPool
 from repro_torch.kernels import build as _build
@@ -366,14 +368,27 @@ class DecodeEngine:
                  block_size: int = 8, *, temperature: float = 0.0,
                  top_k: int = 0, seed: int = 0, paged: bool = False,
                  pool: Optional[BlockPool] = None, page_tokens: int = 16,
-                 spec_k: int = 0, graphs: bool = True):
-        if spec_k and temperature > 0.0:
+                 spec_k: int = 0, spec_ngram: int = 2, graphs: bool = True):
+        self.spec_k = max(0, int(spec_k))
+        self.spec_ngram = max(1, int(spec_ngram))
+        if self.spec_k and temperature > 0.0:
             raise ValueError("speculative decode verifies the longest "
                              "greedy-matching prefix; it requires "
                              "temperature=0 (got spec_k "
                              f"{spec_k}, temperature {temperature})")
-        if spec_k:
-            raise NotImplementedError("speculative decode is not ported yet")
+        if self.spec_k:
+            # the reference's guard for its SWA ring rollback (a verify
+            # rewrites q = spec_k + 1 ring rows, distinct only while q fits
+            # the ring); SWA blocks are refused at Model construction until
+            # they are ported
+            w_min = min([min(b.mixer.window, capacity)
+                         for g in model.cfg.groups for b in g.blocks
+                         if getattr(b.mixer, "kind", "") == "swa"
+                         and getattr(b.mixer, "window", 0) > 0]
+                        or [capacity])
+            if self.spec_k + 1 > w_min:
+                raise ValueError(f"spec_k + 1 = {self.spec_k + 1} exceeds "
+                                 f"the smallest SWA ring buffer ({w_min})")
         self.model = model
         self.params = params
         self.device = _device_of(params)
@@ -449,6 +464,23 @@ class DecodeEngine:
         self._step_in = torch.zeros((), dtype=torch.long, device=dev)
         self._out = torch.zeros((self.block_size, num_slots),
                                 dtype=torch.int32, device=dev)
+        # speculative decode: the accept telemetry; each slot's history
+        # (prompt + accepted stream) for the n-gram drafter, on the host
+        # and on the device, there with a trash column where the rejected
+        # and out-of-range history writes land
+        self.verify_rounds = 0
+        self.accepted_tokens = 0
+        if self.spec_k:
+            q = self.spec_k + 1
+            self._hist = np.zeros((num_slots, capacity), np.int32)
+            self._hist_in = torch.zeros((num_slots, capacity + 1),
+                                        dtype=torch.long, device=dev)
+            # each round's predictions (q) and accept count, one buffer so
+            # the block reaches the host in one copy
+            self._spec_out = torch.zeros((self.block_size, num_slots, q + 1),
+                                         dtype=torch.int32, device=dev)
+            # the O(1) mixer leaves after each verify step, for the commit
+            self._pending = model.verify_buffers(self.caches, q)
         self.graphs = bool(graphs)
         self._graph = None
         self._graph_launches = None      # kernel launches of one replay
@@ -456,9 +488,24 @@ class DecodeEngine:
 
     @property
     def block_compiles(self) -> int:
-        """CUDA graphs captured for the decode block: 1 once the first has
-        been, for good (0 on the CPU and with ``graphs=False``)."""
-        return self._captures
+        """CUDA graphs captured for the plain decode block: 1 once the
+        first has been, for good (0 on the CPU, with ``graphs=False`` and
+        on a speculative engine)."""
+        return 0 if self.spec_k else self._captures
+
+    @property
+    def spec_compiles(self) -> int:
+        """CUDA graphs captured for the speculative block (0 on the CPU,
+        with ``graphs=False`` and at ``spec_k = 0``)."""
+        return self._captures if self.spec_k else 0
+
+    @property
+    def accepted_tokens_per_dispatch(self) -> float:
+        """Mean tokens emitted per verify round (1.0 for the plain
+        path)."""
+        if self.verify_rounds == 0:
+            return 1.0
+        return self.accepted_tokens / self.verify_rounds
 
     @property
     def admit_compiles(self) -> int:
@@ -484,6 +531,13 @@ class DecodeEngine:
         self.budget[slot] = req.max_new_tokens
         self.slot_req[slot] = req.rid
         self.outputs[req.rid] = Response(req.rid, [int(first_token)])
+        if self.spec_k:
+            # the drafter's history: the prompt, then the first token
+            self._hist[slot, :] = 0
+            L = min(prompt_len, self.capacity)
+            self._hist[slot, :L] = np.asarray(req.tokens[:L], np.int32)
+            if prompt_len < self.capacity:
+                self._hist[slot, prompt_len] = first_token
         if not self._warming:
             self._admit_wall[req.rid] = time.perf_counter()
 
@@ -573,9 +627,10 @@ class DecodeEngine:
         if not lay.seq_cols:
             return
         T = lay.page_tokens
+        # a speculative block advances up to spec_k + 1 tokens a round
+        stride = self.block_size * (self.spec_k + 1)
         for slot in np.where(self.active)[0]:
-            end = min(int(self.lengths[slot]) + self.block_size,
-                      self.capacity)
+            end = min(int(self.lengths[slot]) + stride, self.capacity)
             need = -(-end // T)
             have = len(self._seq_pages[slot])
             if need <= have:
@@ -619,16 +674,22 @@ class DecodeEngine:
             self._seq_pages[slot] = []
             self.table_seq[slot, :] = self._layout.sink
 
+    def _tables_kw(self):
+        """The page arguments of a decode step of the block: the static
+        block tables, page size and capacity (none for the dense
+        layout)."""
+        if not self.paged:
+            return {}
+        return dict(tables={"seq": self._tbl_in},
+                    page_tokens=self._layout.page_tokens,
+                    capacity=self.capacity)
+
     def _run_block(self):
         """``block_size`` decode steps from the static input buffers into
         the static output, all on the device: each step's token (argmax or
         sample, keyed by ``_step_in`` + the step) is the next step's input.
         No host sync, so a graph can capture it."""
-        kw = {}
-        if self.paged:
-            kw = dict(tables={"seq": self._tbl_in},
-                      page_tokens=self._layout.page_tokens,
-                      capacity=self.capacity)
+        kw = self._tables_kw()
         toks, lens = self._tok_in, self._len_in
         with torch.no_grad():
             for i in range(self.block_size):
@@ -643,52 +704,115 @@ class DecodeEngine:
                 self._out[i].copy_(toks)
                 lens = lens + 1
 
-    def _capture(self):
-        """Run the block once eagerly on a side stream (kernel builds,
-        ``cudaFuncSetAttribute`` and allocator growth happen there, outside
-        the capture), then capture it.  A capture launches nothing, so the
-        launches the wrappers count during it are kept for the replays."""
+    # --------------------------------------------------- speculative decode
+    def _draft(self, hist, lens):
+        """The n-gram (prompt-lookup) drafter on the device: ``spec_k``
+        tokens a slot, what followed the latest earlier occurrence of the
+        last ``spec_ngram`` tokens of ``hist[b, :lens[b] + 1]`` (prompt +
+        accepted stream).  A slot with no match proposes what lies there;
+        a wrong draft costs only its rejection.  hist (B, C) long, lens
+        (B,) long; returns (B, spec_k) long."""
+        n, k = self.spec_ngram, self.spec_k
+        B, C = hist.shape
+        pos = torch.arange(C, device=hist.device)[None]
+        ok = (pos >= n - 1) & (pos < lens[:, None])
+        for d in range(n):
+            shifted = hist if d == 0 else F.pad(hist, (d, 0))[:, :C]
+            tgt = hist.gather(1, torch.clamp(lens[:, None] - d, 0, C - 1))
+            ok &= shifted == tgt
+        j = torch.where(ok, pos, -1).max(dim=1).values        # latest or -1
+        cols = torch.clamp(j[:, None] + 1 + torch.arange(
+            k, device=hist.device)[None], 0, C - 1)
+        return hist.gather(1, cols)
+
+    def _run_spec_block(self):
+        """``block_size`` draft -> verify -> accept -> commit rounds from
+        the static inputs into ``_spec_out``, all on the device, as the
+        reference's ``_spec_round`` under a scan: step j's prediction is
+        held against draft j, ``accept`` is the matching prefix's length,
+        and the prediction after the last accepted draft rides along, so a
+        round emits accept + 1 tokens and a slot's length advances by as
+        many.  The history takes the accepted predictions at ``lens + 1 +
+        j``; the rest land in its trash column.  No host sync, so a graph
+        can capture it."""
+        kw = self._tables_kw()
+        k, q, C = self.spec_k, self.spec_k + 1, self.capacity
+        toks, lens, hist = self._tok_in, self._len_in, self._hist_in
+        step = torch.arange(q, device=self.device)[None]
+        with torch.no_grad():
+            for r in range(self.block_size):
+                drafts = self._draft(hist[:, :C], lens.long())
+                seq = torch.cat([toks[:, None], drafts], dim=1)
+                logits, self.caches, _ = self.model.decode_verify(
+                    self.params, seq, self.caches, lens,
+                    pending=self._pending, **kw)
+                preds = torch.argmax(logits, dim=-1)              # (B, q)
+                match = (preds[:, :k] == drafts).int()
+                accept = torch.cumprod(match, dim=1).sum(dim=1)   # (B,)
+                self.model.commit_verify(self.caches, self._pending, accept)
+                toks = preds.gather(1, accept[:, None].long())[:, 0]
+                col = lens.long()[:, None] + 1 + step
+                hist.scatter_(1, torch.where(
+                    (step <= accept[:, None]) & (col < C), col, C), preds)
+                self._spec_out[r, :, :q].copy_(preds)
+                self._spec_out[r, :, q].copy_(accept)
+                lens = lens + (accept + 1).to(lens.dtype)
+
+    def _capture(self, run):
+        """Run the block (``run``) once eagerly on a side stream (kernel
+        builds, ``cudaFuncSetAttribute`` and allocator growth happen there,
+        outside the capture), then capture it.  A capture launches nothing,
+        so the launches the wrappers count during it are kept for the
+        replays."""
         dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._run_block()
+            run()
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with _build.captured_launches() as rec, torch.cuda.graph(graph):
-            self._run_block()
+            run()
         self._graph, self._graph_launches = graph, rec
         self._captures += 1
 
     def _block(self, tokens, lengths):
         """One block from host ``tokens`` / ``lengths`` (the block tables,
-        and the tokens emitted before it, which key the sampling noise):
-        the static inputs are filled, the graph replayed (the
-        first block on the card runs eagerly and captures it; a CPU or
-        ``graphs=False`` engine runs eagerly), and the (block, slots) tokens
-        reach the host once."""
+        the tokens emitted before it, which key the sampling noise, and on
+        a speculative engine the drafter's history): the static inputs are
+        filled, the graph replayed (the first block on the card runs
+        eagerly and captures it; a CPU or ``graphs=False`` engine runs
+        eagerly), and the block's output reaches the host once: the (block,
+        slots) tokens, or on a speculative engine the (block, slots,
+        spec_k + 2) predictions with each round's accept count last."""
         self._tok_in.copy_(torch.from_numpy(tokens))
         self._len_in.copy_(torch.from_numpy(lengths))
         if self.paged:
             self._tbl_in.copy_(torch.from_numpy(self.table_seq))
         if self.temperature > 0.0:
             self._step_in.fill_(self._steps)
+        if self.spec_k:
+            self._hist_in[:, :self.capacity].copy_(
+                torch.from_numpy(self._hist))
+        run, out = ((self._run_spec_block, self._spec_out) if self.spec_k
+                    else (self._run_block, self._out))
         if self._graph is not None:
             self._graph.replay()
             _build.LAUNCHES.update(self._graph_launches)
         elif self.graphs and self.device.type == "cuda":
-            self._capture()
+            self._capture(run)
         else:
-            self._run_block()
-        return self._out.to("cpu", copy=True).numpy()
+            run()
+        return out.to("cpu", copy=True).numpy()
 
     def warmup_block(self):
         """One throwaway block with every slot inactive (tokens and lengths
         0), as the reference's warm-up: dense garbage lands in rows a later
         admission rewrites, paged writes in the sink page that every table
         row names.  On the card this is the capture, so no block captures
-        after it (``block_compiles`` stays 1).  Raises when a slot is
-        active: the block would overwrite its state."""
+        after it (``block_compiles``, or ``spec_compiles`` on a speculative
+        engine, stays 1).  Raises when a slot is active: the block would
+        overwrite its state."""
         if self.active.any():
             raise RuntimeError("warmup_block needs every slot inactive")
         zeros = np.zeros((self.num_slots,), np.int32)
@@ -770,6 +894,8 @@ class DecodeEngine:
             self._ensure_pages()          # may retire page-starved slots
             if not self.active.any():
                 return 0
+        if self.spec_k:
+            return self._step_block_spec()
         t0 = time.perf_counter()
         toks = self._block(self.tokens, self.lengths)  # (block, num_slots)
         self._steps += self.block_size
@@ -795,6 +921,43 @@ class DecodeEngine:
             out.extend(int(t) for t in toks[:valid[j], i])
             if done[j]:
                 self._retire(i)
+        return int(self.active.sum())
+
+    def _step_block_spec(self):
+        """Speculative ``step_block``: ``block_size`` verify rounds in one
+        block, each emitting 1..spec_k + 1 tokens a slot, unpacked on the
+        host into variable-stride budget, length and retire accounting.  A
+        slot whose budget or capacity wall lands inside its stream keeps
+        only the valid prefix and retires, so the device's frontier stays
+        exact for the slots that continue."""
+        t0 = time.perf_counter()
+        out = self._block(self.tokens, self.lengths)
+        q = self.spec_k + 1
+        preds, accepts = out[..., :q], out[..., q]
+        idx = np.where(self.active)[0]
+        wall = time.perf_counter() - t0
+        self.decode_wall_s += wall
+        self.slot_busy_s += len(idx) * wall
+        self.verify_rounds += int(accepts[:, idx].size)
+        self.accepted_tokens += int((accepts[:, idx] + 1).sum())
+        for i in idx:
+            stream = np.concatenate([preds[r, i, :accepts[r, i] + 1]
+                                     for r in range(preds.shape[0])])
+            valid = int(np.clip(min(self.budget[i],
+                                    self.capacity - 1 - self.lengths[i]),
+                                1, len(stream)))
+            take = stream[:valid]
+            self.outputs[self.slot_req[i]].output_tokens.extend(
+                int(t) for t in take)
+            L = int(self.lengths[i])
+            hi = min(L + 1 + valid, self.capacity)
+            self._hist[i, L + 1:hi] = take[:max(0, hi - (L + 1))]
+            self.tokens[i] = take[-1]
+            self.lengths[i] += valid
+            self.budget[i] -= valid
+            self.tokens_out += valid
+            if self.budget[i] <= 0 or self.lengths[i] >= self.capacity - 1:
+                self._retire(int(i))
         return int(self.active.sum())
 
     def run_until_drained(self, max_steps: int = 10_000):
@@ -951,9 +1114,8 @@ class RegionScheduler:
                 "goodput_tok_s": self.goodput_tok_s(),
                 "tokens_out": self.decode.tokens_out,
                 "truncations": self.decode.truncations,
-                # tokens per verify round: the reference's value for the
-                # plain (non-speculative) path, the only one ported
-                "accepted_tokens_per_dispatch": 1.0}
+                "accepted_tokens_per_dispatch":
+                    self.decode.accepted_tokens_per_dispatch}
 
 
 def _has_leaf(tree, name: str) -> bool:

@@ -1171,3 +1171,107 @@ def test_calibration_sweep_launches_the_flash_kernel(cuda, tmp_path):
     assert build.LAUNCHES["flash_attention"] > 0
     assert all(0.0 < p["mfu"] <= 1.0 for p in out["points"])
     assert calibrate.load_calibration(str(tmp_path / "cal.json")).points
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("arch", ["kimi-linear-1t", "mistral-nemo-12b",
+                                  "zamba2-1.2b"])
+def test_spec_replay_matches_eager(cuda, arch, paged):
+    """The speculative block (``spec_k=2``, one-token n-grams), replayed,
+    emits the eager block's tokens over two waves of admissions, with one
+    capture (``warmup_block``) for every block; in float32 (the smoke
+    configs), where the decode cores are row-independent, those are the
+    plain graph's greedy tokens."""
+    cfg, peng, make = _decode_engines(cuda, arch, paged)
+    waves = [_wave(cfg, peng, lens, w, 10 * w)
+             for w, lens in enumerate(_DECODE_LENS)]
+    outs = []
+    for graphs, spec_k in ((True, 2), (False, 2), (True, 0)):
+        dec = make(graphs, spec_k=spec_k, spec_ngram=1)
+        dec.warmup_block()
+        for wave in waves:
+            assert dec.admit_many(wave) == len(wave)
+            dec.run_until_drained()
+        if spec_k:
+            assert dec.spec_compiles == (1 if graphs else 0)
+            assert dec.block_compiles == 0
+            assert dec.accepted_tokens >= dec.verify_rounds > 0
+        else:
+            assert dec.block_compiles == 1 and dec.spec_compiles == 0
+        outs.append({rid: r.output_tokens for rid, r in dec.outputs.items()})
+    assert len(outs[0]) == 8 and outs[0] == outs[1]
+    assert outs[0] == outs[2]
+
+
+def test_spec_block_syncs_the_host_once(cuda):
+    """The speculative block's device work never syncs the host (replayed
+    and run eagerly under ``torch.cuda.set_sync_debug_mode("error")``),
+    and a ``step_block`` copies from the device to the host once: the
+    block's predictions and accept counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, peng, make = _decode_engines(cuda, "kimi-linear-1t", True)
+    dec = make(True, spec_k=2, spec_ngram=1)
+    dec.warmup_block()
+    dec.admit_many(_wave(cfg, peng, _DECODE_LENS[0], 0, 0))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dec._graph.replay()
+        dec._run_spec_block()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dec.step_block()
+        torch.cuda.synchronize()
+    d2h = sum(e.count for e in prof.key_averages()
+              if e.key.startswith("Memcpy DtoH"))
+    assert d2h == 1
+
+
+def test_verify_attention_matches_plain(cuda):
+    """``ops.verify_attention`` on the card (three calls of the decode
+    kernel) against its one-pass plain version at mistral-nemo's GQA
+    shape, bf16, ragged lengths up to the buffer's end."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    bf = torch.bfloat16
+    q = _randn(g, (8, 32, 3, 128), bf, cuda)
+    k = _randn(g, (8, 8, 4096, 128), bf, cuda)
+    v = _randn(g, (8, 8, 4096, 128), bf, cuda)
+    lens = torch.tensor([4096, 3001, 2500, 1800, 1024, 700, 97, 4094],
+                        dtype=torch.int32, device=cuda)
+    build.reset_launches()
+    got = ops.verify_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"decode_attention": 3}
+    from repro_torch.kernels.decode_attn import verify_attention_ref
+    want = verify_attention_ref(q, k, v, lens)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[bf][0], rtol=TOL[bf][1])
+
+
+def test_moe_dropless_is_repeatable(cuda):
+    """The prefill MoE's combine adds in a fixed order: three calls at
+    kimi-linear-1t's expert widths (d_model 7168, d_ff 2048, top-8 of 32
+    experts + 1 shared, bf16) on 4096 rows give the same bits."""
+    from repro_torch.configs.base import FFNSpec
+    from repro_torch.models.layers import apply_moe_dropless
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    bf = torch.bfloat16
+    d, f, E = 7168, 2048, 32
+    spec = FFNSpec(kind="moe", d_ff=f, activation="swiglu", num_experts=E,
+                   top_k=8, shared_experts=1)
+    p = {"router": _randn(g, (d, E), torch.float32, cuda, d ** -0.5),
+         "w1": _randn(g, (E, d, f), bf, cuda, d ** -0.5),
+         "w3": _randn(g, (E, d, f), bf, cuda, d ** -0.5),
+         "w2": _randn(g, (E, f, d), bf, cuda, f ** -0.5),
+         "shared": {"w1": _randn(g, (d, f), bf, cuda, d ** -0.5),
+                    "w3": _randn(g, (d, f), bf, cuda, d ** -0.5),
+                    "w2": _randn(g, (f, d), bf, cuda, f ** -0.5)}}
+    x = _randn(g, (4096, d), bf, cuda)
+    with torch.no_grad():
+        ys = [apply_moe_dropless(p, x, spec) for _ in range(3)]
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
