@@ -15,8 +15,10 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      (flash and paged prefill also give their achieved TFLOP/s and share of
      the bound, and are checked also at mistral-nemo's dense GQA chunks
      and zamba2's paged MHA suffix, so at each bf16 core instance a main
-     path runs; the dense and paged decode at the three group sizes the
-     main paths run, MLA, GQA and MHA, and the paged one also at zamba2's
+     path runs, and flash at h2o-danube's sliding window (head dim 80,
+     window 4096, whole and as chunks after 4608 and 8192 keys); the dense
+     and paged decode at the four group sizes the main paths run, MLA,
+     GQA at head dims 128 and 80, and MHA, and the paged one also at zamba2's
      decode block, 8 rows of 4000 tokens; the delta rule, rows 3 and 5, at
      its table shape and at the shapes the main paths run, kimi's prefill
      chunk and the recipe's float32 microbatch; gated linear attention,
@@ -62,6 +64,12 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
          weights), dense and then paged, with a page-aligned 4992-token
          session whose later turn, paged, pins 4992 cached tokens (pool
          pages and the Mamba2 state snapshot) and prefills 600;
+       * ``h2o-danube-1.8b`` at full width and depth (24 layers of
+         sliding-window GQA, window 4096, head dim 80, ~3.6 GB of bf16
+         weights), dense (rings of 4096 rows a slot) and then paged (each
+         slot's private ring table of 256 pages), with the same 4992-token
+         session, past the window, whose later turn, paged, resumes from
+         the ring snapshot (4992 cached tokens) and prefills 600;
      random weights from a seed, each model's weights freed before the
      next one's load; on each path the first offloaded request's in-situ
      wire payload must equal the plain encode of its batch cache, byte for
@@ -78,16 +86,20 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      speculative eager one, ``spec_k`` 2, one-token n-grams): replayed =
      eager tokens, one capture each, verify rounds run, pages conserved,
      the decode kernel launched (its launches counted from 0), the tokens
-     identical to the plain greedy ones recorded in bf16 and, after the
-     float32 conversion of phase 5, gated in float32 on mistral-nemo and
-     zamba2; one spec and one plain block profiled on mistral-nemo dense
-     and kimi paged; and kimi's prefill repeated three times and its
+     identical to the plain greedy ones, gated in bf16 on every path whose
+     verify runs the plain step's shapes (the scan verify: kimi, zamba2 and
+     h2o-danube dense and paged, the latter with a tenth prompt past the
+     window so its rings wrap and roll back; mistral-nemo paged) and on
+     mistral-nemo dense (one pass, its products over B x 3 rows) recorded
+     in bf16 and gated in float32 after phase 5's conversion; one spec and
+     one plain block profiled on mistral-nemo dense and kimi paged; and kimi's prefill repeated three times and its
      dropless MoE three, every cache leaf and every MoE output the same
      bits (``prefill_repeatability``, gated);
   5. compare logits through the kernels with those through the plain
      versions (largest difference within 2 % of the largest |logit|): one
      prefill batch of kimi in bf16; one prefill batch and one paged decode
-     step of mistral-nemo-12b and of zamba2-1.2b, recorded in bf16 and held
+     step of mistral-nemo-12b, of zamba2-1.2b and of h2o-danube-1.8b (its
+     prefill of 5000 tokens, past the window), recorded in bf16 and held
      in float32 (over their 38-40 layers bf16 rounding flips compound by
      themselves: ~2 % on mistral-nemo, ~11 % on zamba2's prefill, on an
      H100), and zamba2's bf16 prefill logits through the kernels no
@@ -101,9 +113,10 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      kernels' shares); each profiled decode block (kimi's too) also as a
      sampling graph, recorded beside the greedy one; the verify attention
      (three decode-kernel calls at mistral-nemo's GQA shape) against its
-     one-pass plain version, gated at the bf16 tolerance; and whether a
-     row's decode output moves with another row's length
-     (``decode_batch_variance``, recorded);
+     one-pass plain version, gated at the bf16 tolerance; and that no
+     row's decode output moves with another row's length, dense and paged
+     at every group size the bf16 core serves, float32 at GQA
+     (``decode_batch_variance``, gated);
   5b. the serving launcher end to end (``repro_torch.launch.serve
      .run_serve``, in-process): zamba2-1.2b at full width and depth,
      twelve requests in three batches over three PD regions, int8 wire,
@@ -127,7 +140,9 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      through ``TrainLoop`` with checkpoints in a temporary directory (the
      KDA mixers on the unmasked delta kernel, row 5); its loss must fall.
 
-The last lines are the main paths' summary, the ``nvidia-smi`` line, one
+Each phase's seconds are printed as it ends (``phase <name>: <s>``) and
+kept under ``phase_s`` in the summary.  The last lines are the main
+paths' summary, the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, when there is no CUDA device or no
 port beside this script.
@@ -217,10 +232,13 @@ def _nbytes(*ts) -> int:
 
 
 # the decode kernels' check shapes (rows 2 and 8): lengths of the 8 rows,
-# and the group sizes the main paths run (tag, Hq, Hkv, Dk, Dv, scale)
+# and the group sizes the main paths run (tag, Hq, Hkv, Dk, Dv, scale):
+# kimi's absorbed MLA, mistral-nemo's GQA, h2o-danube's GQA at head dim 80
+# (its ring holds at most 4096 keys and takes no window) and zamba2's MHA
 CHECK_LENGTHS = (16384, 12001, 9000, 5601, 3800, 1501, 701, 101)
 DECODE_GROUPS = (("MLA", 64, 1, 536, 472, 192 ** -0.5),
                  ("GQA", 32, 8, 128, 128, 128 ** -0.5),
+                 ("GQA80", 32, 8, 80, 80, 80 ** -0.5),
                  ("MHA", 32, 32, 64, 64, 64 ** -0.5))
 
 
@@ -258,6 +276,43 @@ def _decode_case(torch, close, atol_needed, name, run, plain, q, k, v, lens,
             qg, k, v, attn_mask=mask, scale=scale), 10))
     entry["bound_share"] = entry["bound_ms"] / entry["ms"]
     return entry
+
+
+def time_decode_shapes(torch, dev):
+    """Rows 2 and 8 timed at their table shapes (B 8, lengths 16384..101
+    over S 16384; paged: pages of 16 through permuted tables) at the three
+    DECODE_GROUPS, and at 8 rows of 4000 tokens (zamba2's and mistral-nemo's
+    decode blocks): {"dense" | "paged": {shape: ms}} by CUDA events over
+    50 launches.  Imports ``repro_torch`` when called, so the kernels timed
+    are those of the checkout on the path."""
+    from repro_torch.kernels.decode_attn import decode_attention
+    from repro_torch.kernels.paged_decode_attn import paged_decode_attention
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    bf = torch.bfloat16
+    T, S, B = 16, 16384, 8
+    P, N = B * S // T + 1, S // T
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    out = {"dense": {}, "paged": {}}
+    for name, lengths in (("16384..101", CHECK_LENGTHS),
+                          ("8x4000", (4000,) * B)):
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        tables = _paged_tables(torch, dev, g, list(lengths), T, N, P)
+        for tag, Hq, Hkv, Dk, Dv, scale in DECODE_GROUPS:
+            q = randn(B, Hq, Dk)
+            k, v = randn(B, Hkv, S, Dk), randn(B, Hkv, S, Dv)
+            out["dense"][f"{tag} {name}"] = _ms(
+                lambda: decode_attention(q, k, v, lens, scale=scale), 50)
+            del k, v
+            kp, vp = randn(Hkv, P, T, Dk), randn(Hkv, P, T, Dv)
+            out["paged"][f"{tag} {name}"] = _ms(
+                lambda: paged_decode_attention(q, kp, vp, tables, lens,
+                                               scale=scale), 50)
+            del kp, vp
+    return out
 
 
 def _decode_entry(source, replaces, shapes):
@@ -829,6 +884,23 @@ def check_kernels(torch, dev):
             f"flash_attention (GQA, q_offset {off})", og, og_ref, *TOL_BF16)
         needed.append(atol_needed(og, og_ref))
         del qg, kg, vg, og, og_ref
+    # h2o-danube's sliding-window GQA (Hq 32 over Hkv 8, D 80, window
+    # 4096): the logit checks' 5000-token prefill, a 4096-query chunk after
+    # 4608 keys of prior (tiles cut by the window off a tile edge) and the
+    # main path's third 4096-token chunk, at q_offset 8192
+    for Sq, off in ((5000, 0), (4096, 4608), (4096, 8192)):
+        qs = randn(1, 32, Sq, 80)
+        ks, vs = randn(1, 8, off + Sq, 80), randn(1, 8, off + Sq, 80)
+        os_ = flash_attention(qs, ks, vs, causal=True, window=4096,
+                              q_offset=off)
+        torch.cuda.synchronize()
+        os_ref = flash_attention_ref(qs, ks, vs, causal=True, window=4096,
+                                     q_offset=off)
+        checked[f"swa_d80_{Sq}_q_offset_{off}"] = close(
+            f"flash_attention (SWA D 80, {Sq} queries, q_offset {off})",
+            os_, os_ref, *TOL_BF16)
+        needed.append(atol_needed(os_, os_ref))
+        del qs, ks, vs, os_, os_ref
     S = 2048
     pairs = S * (S + 1) // 2
     flops = 2 * H * pairs * (Dk + Dv)
@@ -848,13 +920,15 @@ def check_kernels(torch, dev):
               "causal; checked also at 2048 queries over 6144 keys, "
               "q_offset 4096, and at mistral-nemo's GQA chunk q "
               "(1,32,4096,128) over k, v (1,8,4096|8192,128), q_offset 0 "
-              "and 4096")
+              "and 4096, and at h2o-danube's SWA q (1,32,Sq,80) over k, v "
+              "(1,8,q_offset+Sq,80), window 4096: Sq 5000 at q_offset 0, "
+              "Sq 4096 at q_offset 4608 and 8192")
 
-    # decode (row 2) at the three group sizes the main paths run: absorbed
-    # MLA (Hq 64 over Hkv 1, Dk 536, Dv 472: the table's row), GQA (32 over
-    # 8 heads of 128) and zamba2's MHA (32 heads of 64), the last two read
-    # in place through the model's (B, S, Hkv, D) buffers as gqa_decode
-    # passes them
+    # decode (row 2) at the group sizes the main paths run: absorbed MLA
+    # (Hq 64 over Hkv 1, Dk 536, Dv 472: the table's row), GQA (32 over 8
+    # heads of 128, and of 80) and zamba2's MHA (32 heads of 64), all but
+    # MLA read in place through the model's (B, S, Hkv, D) buffers as
+    # gqa_decode passes them
     B, S = 8, 16384
     lens = torch.tensor(CHECK_LENGTHS, dtype=torch.int32, device=dev)
     shapes = {}
@@ -1317,15 +1391,17 @@ def _logit_check(torch, what, got, want, gate=True):
             "argmax_agreement": same}
 
 
-def compare_logits(torch, dev, cfg, params, gate=True, keep=None):
-    """Phase 5: one bucketed prefill batch through the kernels and through
-    the plain versions (both kept in ``keep``, as float32, when given)."""
+def compare_logits(torch, dev, cfg, params, gate=True, keep=None, S=1024):
+    """Phase 5: one bucketed prefill batch of two rows, S and 700 S / 1024
+    tokens, through the kernels and through the plain versions (both kept
+    in ``keep``, as float32, when given)."""
     from repro_torch.models import Model
 
     g = torch.Generator(device=dev).manual_seed(1)
-    toks = torch.randint(0, cfg.vocab_size, (2, 1024), generator=g,
+    toks = torch.randint(0, cfg.vocab_size, (2, S), generator=g,
                          device=dev)
-    lens = torch.tensor([1024, 700], dtype=torch.int32, device=dev)
+    lens = torch.tensor([S, 700 * S // 1024], dtype=torch.int32,
+                        device=dev)
     with torch.no_grad():
         got, _ = Model(cfg).prefill(params, {"tokens": toks, "lengths": lens})
         want, _ = Model(cfg, use_kernels=False).prefill(
@@ -1388,7 +1464,8 @@ def compare_paged_step(torch, dev, cfg, params, gate=True):
 
     lens = [1000, 700]                 # the next position has its page
     dec, first = _paged_engine(torch, cfg, params, lens, 4096, seed=2)
-    kw = dict(tables={"seq": torch.as_tensor(dec.table_seq, device=dev)},
+    kw = dict(tables={"seq": torch.as_tensor(dec.table_seq, device=dev),
+                      "ring": torch.as_tensor(dec.table_ring, device=dev)},
               page_tokens=16, capacity=4096)
     tok = torch.as_tensor(first, device=dev).long()
     ln = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -1712,34 +1789,48 @@ def check_replay(torch, dev, cfg, params, *, paged: bool,
 SPEC = dict(spec_k=2, spec_ngram=1)
 
 
-def _spec_prompts(cfg):
+def _spec_prompts(cfg, long_prompt: int = 0):
     """(lengths, right-padded tokens) of the eight ``_replay_prompts`` and
     a ninth of a 16-token phrase repeated to 1024 tokens, on which the
-    drafter's guesses can land."""
+    drafter's guesses can land; ``long_prompt``: a tenth of that many
+    tokens, the phrase repeated after a random head (a sliding window's
+    ring wraps on it)."""
     import numpy as np
     lens, toks = _replay_prompts(cfg)
-    phrase = np.random.default_rng(5).integers(0, cfg.vocab_size, 16)
-    rows = np.zeros((9, toks.shape[1]), np.int32)
-    rows[:8] = toks
+    rng = np.random.default_rng(5)
+    phrase = rng.integers(0, cfg.vocab_size, 16)
+    n = 10 if long_prompt else 9
+    rows = np.zeros((n, max(toks.shape[1], long_prompt)), np.int32)
+    rows[:8, :toks.shape[1]] = toks
     rows[8, :1024] = np.resize(phrase, 1024)
-    return np.append(lens, 1024).astype(np.int32), rows
+    lens = np.append(lens, 1024)
+    if long_prompt:
+        head = long_prompt - 512
+        rows[9, :head] = rng.integers(0, cfg.vocab_size, head)
+        rows[9, head:long_prompt] = np.resize(phrase, 512)
+        lens = np.append(lens, long_prompt)
+    return lens.astype(np.int32), rows
 
 
 def check_spec(torch, dev, cfg, params, *, launches=None, eager=True,
-               gate_identity=False, profile=()):
-    """Speculative decode on a model's dense and paged served paths: the
-    nine ``_spec_prompts``, prefilled once (budgets 16-24 tokens), are
+               gate_identity=(), profile=(), layouts=(False, True),
+               long_prompt=0):
+    """Speculative decode on a model's dense and paged served paths
+    (``layouts``; False: dense, True: paged): the nine ``_spec_prompts``
+    (ten with ``long_prompt``), prefilled once (budgets 16-25 tokens), are
     admitted, for each layout, into a plain graph engine, a speculative
     graph engine and (``eager``) a speculative eager one (``SPEC``,
-    ``graphs=False``), each of 9 slots, warmed (its capture) and drained.
+    ``graphs=False``), each of a slot a prompt, warmed (its capture) and
+    drained.
     Gated: the speculative replay emits the eager block's tokens; each
     graph engine captures once; ``verify_rounds > 0`` and
     ``accepted_tokens >= verify_rounds``; the paged pool conserves its
     pages; the speculative graph launches the layout's decode kernel, its
-    launches counted from 0 (added to ``launches``).  ``gate_identity``:
-    speculative tokens must equal the plain greedy ones (float32, where
-    the decode cores are row-independent); otherwise the count of
-    identical requests and each one's first divergence are recorded.
+    launches counted from 0 (added to ``launches``).  The count of
+    requests whose speculative tokens equal the plain greedy ones, and
+    each other one's first divergence, are recorded; on the layouts in
+    ``gate_identity`` every request's must (the decode cores are
+    batch-invariant, so a scan verify runs the plain step's bits).
     ``profile``: the layouts (False: dense, True: paged) whose graph
     engines run their first block under ``_profiled_once`` (busy ms per
     emitted token; its wall is left out of ``decode_wall_s``).  Returns
@@ -1752,7 +1843,8 @@ def check_spec(torch, dev, cfg, params, *, launches=None, eager=True,
     from repro_torch.serving.engine import trim_request_cache
 
     model = Model(cfg)
-    lens, toks = _spec_prompts(cfg)
+    lens, toks = _spec_prompts(cfg, long_prompt)
+    capacity = max(2304, -(-(long_prompt + 64) // 256) * 256)
     first, caches, _ = PrefillEngine(model, params, min_bucket=128,
                                      max_bucket=4096).prefill(toks, lens)
     entries = [(Request(rid=i, tokens=toks[i, :L], max_new_tokens=16 + i),
@@ -1763,13 +1855,13 @@ def check_spec(torch, dev, cfg, params, *, launches=None, eager=True,
     if eager:
         engines["spec_eager"] = (False, SPEC)
     out = {}
-    for paged in (False, True):
+    for paged in layouts:
         t0 = time.perf_counter()
         kernel = "paged_decode_attention" if paged else "decode_attention"
         what = f"{cfg.name} {cfg.dtype} (paged={paged}) speculative"
         res, outs = {}, {}
         for tag, (graphs, spec) in engines.items():
-            dec = DecodeEngine(model, params, len(entries), 2304,
+            dec = DecodeEngine(model, params, len(entries), capacity,
                                block_size=8, paged=paged, page_tokens=16,
                                graphs=graphs, **spec)
             torch.cuda.synchronize()
@@ -1841,7 +1933,8 @@ def check_spec(torch, dev, cfg, params, *, launches=None, eager=True,
         res["requests"] = len(outs["plain"])
         res["requests_identical_to_plain"] = same
         res["first_divergence"] = first_div
-        if gate_identity and same != len(outs["plain"]):
+        res["identity_gated"] = paged in gate_identity
+        if paged in gate_identity and same != len(outs["plain"]):
             fail(f"{what}: speculative tokens differ from the plain greedy "
                  f"ones (request: first differing index) {first_div}")
         res["decode_wall_s_per_token"] = {
@@ -1859,36 +1952,67 @@ def check_spec(torch, dev, cfg, params, *, launches=None, eager=True,
 
 
 def decode_batch_variance(torch, dev):
-    """Whether a row's decode output depends on the other rows' lengths:
-    the decode kernel (row 2) on eight rows, then again with row 1's length
-    changed; row 0's output compared bit for bit.  bf16 at mistral-nemo's
-    GQA and kimi's MLA shapes (the Hopper core splits the live tiles of
-    all rows over its workers), float32 at the GQA shape (the SIMT core
-    splits each row by its own length).  Recorded, no gate."""
+    """That a row's decode output does not depend on the other rows'
+    lengths: the decode kernels (rows 2 and 8) on eight rows, then again
+    with row 1's length moved to each of 0, 17, 700 more and the full
+    4096; every other row's output compared bit for bit.  bf16, dense and
+    paged (pages of 16, a permuted table), at every group size the Hopper
+    core serves: mistral-nemo's GQA (G 4, the stream), h2o-danube's (G 4
+    at head dim 80), qwen2.5's (G 8, the stream's 8-head instance),
+    granite's MQA (G 48, one 64-row tensor-core tile), kimi's absorbed MLA
+    (G 64) and zamba2's MHA (G 1); float32 at the GQA shape (the SIMT
+    core).  Gated: no row may move."""
     from repro_torch.kernels import ops
 
     g = torch.Generator(device=dev).manual_seed(11)
+    S, T = 4096, 16
+    base = [3000, 1200, 2600, 900, 4000, 150, 3300, 2048]
     out = {}
-    for tag, dtype, Hq, Hkv, Dk, Dv, S in (
-            ("gqa_bf16", torch.bfloat16, 32, 8, 128, 128, 4096),
-            ("mla_bf16", torch.bfloat16, 64, 1, 536, 472, 4096),
-            ("gqa_f32", torch.float32, 32, 8, 128, 128, 4096)):
+    for tag, dtype, Hq, Hkv, Dk, Dv in (
+            ("gqa_bf16", torch.bfloat16, 32, 8, 128, 128),
+            ("gqa_d80_bf16", torch.bfloat16, 32, 8, 80, 80),
+            ("g8_bf16", torch.bfloat16, 16, 2, 128, 128),
+            ("mqa_g48_bf16", torch.bfloat16, 48, 1, 128, 128),
+            ("mla_bf16", torch.bfloat16, 64, 1, 536, 472),
+            ("mha_bf16", torch.bfloat16, 32, 32, 64, 64),
+            ("gqa_f32", torch.float32, 32, 8, 128, 128)):
         q = torch.randn((8, Hq, Dk), generator=g, device=dev).to(dtype)
         k = torch.randn((8, Hkv, S, Dk), generator=g, device=dev).to(dtype)
         v = torch.randn((8, Hkv, S, Dv), generator=g, device=dev).to(dtype)
-        lens = torch.tensor([3000, 1200, 2600, 900, 4000, 150, 3300, 2048],
-                            dtype=torch.int32, device=dev)
-        a = ops.decode_attention(q, k, v, lens)
-        lens2 = lens.clone()
-        lens2[1] += 700
-        b = ops.decode_attention(q, k, v, lens2)
-        torch.cuda.synchronize()
-        out[tag] = {"row0_bits_moved": not torch.equal(a[0], b[0]),
-                    "row0_max_abs_diff": float((a[0].float()
-                                                - b[0].float()).abs().max()),
-                    "rows_moved_of_7_unchanged": int(sum(
-                        not torch.equal(a[i], b[i]) for i in range(8)
-                        if i != 1))}
+        layouts = {"dense": lambda n: ops.decode_attention(q, k, v, n)}
+        if dtype == torch.bfloat16:
+            N = S // T
+            perm = torch.randperm(8 * N, generator=torch.Generator()
+                                  .manual_seed(3)).to(dev)
+            tables = perm.reshape(8, N).to(torch.int32)
+            kp = torch.empty((Hkv, 8 * N + 1, T, Dk), dtype=dtype, device=dev)
+            vp = torch.empty((Hkv, 8 * N + 1, T, Dv), dtype=dtype, device=dev)
+            kp[:, perm] = k.reshape(8, Hkv, N, T, Dk).transpose(0, 1) \
+                .reshape(Hkv, 8 * N, T, Dk)
+            vp[:, perm] = v.reshape(8, Hkv, N, T, Dv).transpose(0, 1) \
+                .reshape(Hkv, 8 * N, T, Dv)
+            layouts["paged"] = lambda n: ops.paged_decode_attention(
+                q, kp, vp, tables, n)
+        for layout, run in layouts.items():
+            lens = torch.tensor(base, dtype=torch.int32, device=dev)
+            a = run(lens)
+            moved, diff = {}, 0.0
+            for L in (0, 17, base[1] + 700, S):
+                lens2 = lens.clone()
+                lens2[1] = L
+                b = run(lens2)
+                torch.cuda.synchronize()
+                rows = [i for i in range(8)
+                        if i != 1 and not torch.equal(a[i], b[i])]
+                if rows:
+                    moved[L] = rows
+                diff = max(diff, float((a.float() - b.float())[
+                    [i for i in range(8) if i != 1]].abs().max()))
+            out[f"{tag}_{layout}"] = {"rows_moved_by_row1_length": moved,
+                                      "max_abs_diff_other_rows": diff}
+    bad = {t: r for t, r in out.items() if r["rows_moved_by_row1_length"]}
+    if bad:
+        fail(f"decode rows moved with another row's length: {bad}")
     return out
 
 
@@ -1917,6 +2041,26 @@ def check_verify(torch, dev):
     return {"max_abs_err": err,
             "ms": _ms(lambda: ops.verify_attention(q, k, v, lens), 20),
             "plain_ms": _ms(lambda: verify_attention_ref(q, k, v, lens), 5)}
+
+
+def gemm_rows_probe(torch, dev):
+    """Whether a bf16 product's first 9 rows keep their bits when it runs
+    over 27 (mistral-nemo dense's one-pass verify runs its products over
+    B x 3 rows where a plain step's run over B) at mistral-nemo's
+    projection and FFN shapes: {"din x dout": bool}.  Not called by
+    ``main``; the one run behind PERF.md's answer is in the verify
+    skill's notes."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    bf = torch.bfloat16
+    gemm_rows = {}
+    for din, dout in ((5120, 4096), (5120, 1024), (5120, 14336),
+                      (14336, 5120), (4096, 5120)):
+        x = torch.randn((27, din), generator=g, device=dev).to(bf)
+        w = (torch.randn((din, dout), generator=g, device=dev)
+             * din ** -0.5).to(bf)
+        gemm_rows[f"{din}x{dout}"] = bool(torch.equal((x @ w)[:9],
+                                                      x[:9] @ w))
+    return gemm_rows
 
 
 def calibration(torch, dev):
@@ -2130,8 +2274,8 @@ def zamba2_paths(torch, dev, paths, launches):
         paths[f"{tag}_replay"] = check_replay(torch, dev, cfg, params,
                                               paged=paged)
         print(f"{tag}_replay: {paths[f'{tag}_replay']}", flush=True)
-    for layout, res in check_spec(torch, dev, cfg, params,
-                                  launches=launches).items():
+    for layout, res in check_spec(torch, dev, cfg, params, launches=launches,
+                                  gate_identity=(False, True)).items():
         paths[f"zamba2_{layout}_spec"] = res
     paths["zamba2_decode_profile"] = profile_decode_block(torch, dev, cfg,
                                                           params)
@@ -2152,9 +2296,67 @@ def zamba2_paths(torch, dev, paths, launches):
         torch, bf16, f32["plain"])
     paths["zamba2_paged_step_f32"] = compare_paged_step(torch, dev, cfg,
                                                         params)
-    for layout, res in check_spec(torch, dev, cfg, params, eager=False,
-                                  gate_identity=True).items():
-        paths[f"zamba2_{layout}_spec_f32"] = res
+
+
+def danube_paths(torch, dev, paths, launches):
+    """h2o-danube-1.8b at full width and depth (24 sliding-window GQA
+    layers, window 4096, head dim 80), dense and then paged, with the
+    page-aligned 4992-token session past the window: on the paged path its
+    later turn resumes from the ring snapshot and prefills only its
+    600-token suffix.  Then the replay checks (greedy and sampled),
+    speculative decode with a tenth prompt of 4600 tokens, so the rings
+    wrap and roll back (bf16 tokens gated equal to the plain greedy ones),
+    and the logit checks over a 5000-token prefill and a paged decode
+    step: bf16 recorded, the 2 % gate held in float32."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("h2o-danube-1.8b")
+    params = load_params(torch, dev, cfg, 3)
+    for tag, paged, need in (
+            ("danube_dense", False, ("flash_attention", "decode_attention",
+                                     "quantize_int8_fused")),
+            ("danube_paged", True, ("flash_attention",
+                                    "paged_decode_attention",
+                                    "quantize_int8_fused"))):
+        summary, counts, dep = main_path(torch, dev, cfg, params,
+                                         paged=paged, session_len=4992)
+        del dep
+        require_launched(counts, need, tag)
+        if paged:
+            pin = summary["device_pin_cached_len"]
+            if pin != 4992:
+                fail(f"the later turn on danube pinned {pin} cached tokens, "
+                     "not its 4992-token ring snapshot")
+            if summary["pd_tokens_prefilled"][-1] != 600:
+                fail(f"the later turn on danube prefilled "
+                     f"{summary['pd_tokens_prefilled'][-1]} tokens, not its "
+                     "600-token suffix")
+        paths[tag] = summary
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        print(f"{tag}: {summary['wall_s']:.2f} s wall, launches {counts}",
+              flush=True)
+        for sampled in (False, True):
+            key = f"{tag}_replay" + ("_sampled" if sampled else "")
+            paths[key] = check_replay(torch, dev, cfg, params, paged=paged,
+                                      sampled=sampled)
+            print(f"{key}: {paths[key]}", flush=True)
+        gc_cuda(torch)
+    for layout, res in check_spec(torch, dev, cfg, params, launches=launches,
+                                  gate_identity=(False, True),
+                                  long_prompt=4600).items():
+        paths[f"danube_{layout}_spec"] = res
+    gc_cuda(torch)
+    paths["danube_logits_bf16"] = compare_logits(torch, dev, cfg, params,
+                                                 gate=False, S=5000)
+    paths["danube_paged_step_bf16"] = compare_paged_step(torch, dev, cfg,
+                                                         params, gate=False)
+    cfg, params = to_float32(cfg, params)
+    torch.cuda.empty_cache()
+    paths["danube_logits_f32"] = compare_logits(torch, dev, cfg, params,
+                                                S=5000)
+    paths["danube_paged_step_f32"] = compare_paged_step(torch, dev, cfg,
+                                                        params)
 
 
 def _grad_gap(torch, got, want):
@@ -2391,6 +2593,14 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    phase_s, clock = {}, [time.perf_counter()]
+
+    def phase(name):
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
@@ -2403,6 +2613,7 @@ def main():
     lib = build.build()
     build.library()
     print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    phase("build")
     # registers and spills of the bf16 decode core's, the delta core's, the
     # GLA core's and the wire encode's instances
     decode_ptxas = ptxas_report(str(lib) + ".log", "decode_hopper::")
@@ -2429,9 +2640,11 @@ def main():
     batch_variance = decode_batch_variance(torch, dev)
     print(f"verify_attention: {verify}; decode batch variance: "
           f"{batch_variance}", flush=True)
+    phase("kernel_checks")
     torch.cuda.empty_cache()
     calib = calibration(torch, dev)
     gc_cuda(torch)
+    phase("calibration")
 
     # kimi-linear-1t slice: the dense path, then the paged one
     cfg = kimi_config()
@@ -2460,7 +2673,8 @@ def main():
         print(f"{tag}_replay_sampled: {paths[f'{tag}_replay_sampled']}",
               flush=True)
     for layout, res in check_spec(torch, dev, cfg, params,
-                                  launches=launches, profile=(True,)).items():
+                                  launches=launches, profile=(True,),
+                                  gate_identity=(False, True)).items():
         paths[f"kimi_{layout}_spec"] = res
     rep = prefill_repeatability(torch, dev, cfg, params)
     paths["kimi_prefill_repeatability"] = rep
@@ -2482,6 +2696,7 @@ def main():
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    phase("kimi")
 
     # mistral-nemo-12b at full width and depth, paged, with a prefix hit
     cfg = get_config("mistral-nemo-12b")
@@ -2503,8 +2718,11 @@ def main():
                                                  paged=True)
     print(f"mistral_paged_replay: {paths['mistral_paged_replay']}",
           flush=True)
+    # the paged verify is the scan of plain steps: gated in bf16; the
+    # dense one-pass verify runs its products over B x 3 rows: recorded
     for layout, res in check_spec(torch, dev, cfg, params,
-                                  launches=launches, profile=(False,)).items():
+                                  launches=launches, profile=(False,),
+                                  gate_identity=(True,)).items():
         paths[f"mistral_{layout}_spec"] = res
     paths["mistral_decode_profile"] = profile_decode_block(torch, dev, cfg,
                                                            params)
@@ -2530,23 +2748,30 @@ def main():
     paths["mistral_paged_step_f32"] = compare_paged_step(torch, dev, cfg,
                                                          params)
     gc_cuda(torch)
-    # speculative tokens against the plain greedy ones where the decode
-    # cores are row-independent: float32
+    # the one-pass dense verify's tokens against the plain greedy ones in
+    # float32, where its products' row count does not move a bit
     for layout, res in check_spec(torch, dev, cfg, params, eager=False,
-                                  gate_identity=True).items():
+                                  gate_identity=(False,),
+                                  layouts=(False,)).items():
         paths[f"mistral_{layout}_spec_f32"] = res
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    phase("mistral")
 
     zamba2_paths(torch, dev, paths, launches)
     gc_cuda(torch)
+    phase("zamba2")
+    danube_paths(torch, dev, paths, launches)
+    gc_cuda(torch)
+    phase("danube")
 
     # the serving launcher end to end, calibrated, sampled, cross-validated
     runs, counts = launcher(torch, dev, ROOT / calib["path"])
     paths.update(runs)
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
+    phase("launcher")
 
     # the training path: zamba2-1.2b (row 6), then the KDA:MLA recipe
     # (row 5)
@@ -2566,6 +2791,8 @@ def main():
           f"{summary['losses'][-1]:.4f}, "
           f"{summary['mean_step_s_after_first']:.3f} s a step, launches "
           f"{summary['launches']}", flush=True)
+    phase("training")
+    paths["phase_s"] = phase_s
     paths["calibration"] = calib
     paths["gradient_checks"] = grad_checks
     paths["verify_attention"] = verify

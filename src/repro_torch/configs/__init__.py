@@ -1,6 +1,7 @@
 """Architecture registry of the port: the architectures it can serve."""
-from repro_torch.configs import (kimi_linear_1t, mistral_nemo_12b,
-                                 zamba2_1_2b)
+from repro_torch.configs import (granite_20b, h2o_danube_1_8b,
+                                 kimi_linear_1t, mistral_nemo_12b,
+                                 qwen2_5_3b, zamba2_1_2b)
 from repro_torch.configs.base import (AttentionSpec, BlockSpec, FFNSpec,
                                       GroupSpec, LinearSpec, ModelConfig,
                                       reduce_for_smoke)
@@ -9,6 +10,9 @@ ARCH_BUILDERS = {
     "kimi-linear-1t": kimi_linear_1t.build,
     "mistral-nemo-12b": mistral_nemo_12b.build,
     "zamba2-1.2b": zamba2_1_2b.build,
+    "h2o-danube-1.8b": h2o_danube_1_8b.build,
+    "qwen2.5-3b": qwen2_5_3b.build,
+    "granite-20b": granite_20b.build,
 }
 
 

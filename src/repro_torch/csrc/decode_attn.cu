@@ -42,13 +42,15 @@ struct DenseKeys {
 // (B,Hq,Dv).  float32: G query heads a block, `splits` runs per row,
 // part_acc (B,Hq,splits,Dv) and part_ml (B,Hq,splits,2) float32 scratch.
 // bfloat16: G query heads a stream worker (or 64 rows at G >= 16),
-// `splits` workers a head tile, `tile` keys a tile, part_acc
-// (splits + B - 1, Hq, Dv) and part_ml (splits + B - 1, Hq, 2).
+// `splits` workers a head tile, `tile` keys a tile, at most `runs` runs a
+// row of at least `rmin` tiles each, part_acc (B * runs, Hq, Dv) and
+// part_ml (B * runs, Hq, 2); float32 ignores runs and rmin.
 PRFAAS_API int prfaas_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
     void* out, void* part_acc, void* part_ml, long long rB, long long rH,
     long long rS, int B, int Hq, int Hkv, int S, int Dk, int Dv, int G,
-    int window, float scale, int splits, int tile, int dtype, void* stream) {
+    int window, float scale, int splits, int tile, int runs,
+    int rmin, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(lengths);
   float* pa = static_cast<float*>(part_acc);
@@ -56,7 +58,7 @@ PRFAAS_API int prfaas_decode_attention(
   const DenseKeys keys{S, rB, rH, rS};
   if (dtype == kBF16) {
     decode_hopper::Args a{q, k, v, lens, out, pa, pm, B, Hq, Hkv, Dk, Dv, G,
-                          splits, window, tile,
+                          splits, window, tile, runs, rmin,
                           decode_hopper::scale_log2(scale)};
     return decode_hopper::launch(a, keys, s);
   }

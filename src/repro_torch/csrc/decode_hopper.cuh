@@ -37,17 +37,22 @@
 //   product with shuffles, and each lane keeps the running max, sum and
 //   its accumulator columns of up to 8 heads in registers.
 //
-// Work is split across workers by tiles: the live keys of every row are
-// cut into tiles (BK keys, or one warp stage), the tiles of all rows are
-// numbered in row order, and each of the NW workers takes a run of T / NW
-// of them, one more for the first T % NW.  A run may cross rows; worker i
-// then writes one partial (max, sum, unnormalised accumulator) per row b
-// it touched, at segment i + b, and the combine kernel merges each row's
-// segments.  The plan derives
-// from `lengths` on the device (no host copy).  A row with no live key
-// writes 0.  Keys past the length, and pages past it, are never read; the
-// dead rows of a partly live tile are zero in shared memory and their
-// scores are -inf by selection.
+// Work is split by rows, each by its own length alone: row b's live keys
+// are cut into tiles (BK keys, or one warp stage), and its c_b tiles into
+// n_b = min(MR, ceil(c_b / RMIN)) runs, run j starting at tile j (c_b /
+// n_b) + min(j, c_b % n_b).  MR (most runs a row) and RMIN (fewest tiles a
+// run) come from the launch's static shapes, so where a row's partials
+// begin and end, and the order the combine merges them, never depend on
+// another row's length: a row's bits are the same whatever its batch-mates
+// hold.  Run j of row b writes its partial (max, sum, unnormalised
+// accumulator) to slot b MR + j.  The runs of all rows, numbered in row
+// order, are dealt to the NW workers by their first tiles: worker i takes
+// the runs that start in its even share [i T / NW, (i + 1) T / NW) of the
+// T live tiles, so a worker's load is its share plus at most one run.  The
+// plan derives from `lengths` on the device (no host copy).  A row with no
+// live key writes 0.  Keys past the length, and pages past it, are never
+// read; the dead rows of a partly live tile are zero in shared memory and
+// their scores are -inf by selection.
 #pragma once
 #include <initializer_list>
 
@@ -55,13 +60,24 @@
 
 namespace decode_hopper {
 
-// ---- tiles of the live keys, numbered across rows ------------------------
+// ---- each row's runs, numbered across rows --------------------------------
+
+// runs of a row of c live tiles: at most MR, none shorter than RMIN tiles
+// (bar the last ones of a row shorter than RMIN n)
+__device__ __forceinline__ int row_runs(int c, int MR, int RMIN) {
+  return c > 0 ? min(MR, (c + RMIN - 1) / RMIN) : 0;
+}
+// first tile of run j of n over c tiles (j = n gives c)
+__device__ __forceinline__ int run_start(int c, int n, int j) {
+  return j * (c / n) + min(j, c % n);
+}
 
 struct Walk {
   const int* lengths;
-  int S, window, TK;
-  int b = -1, lo = 0, len = 0, count = 0;
+  int S, window, TK, MR, RMIN;
+  int b = -1, lo = 0, len = 0, count = 0, nrun = 0, run = 0;
   long long first = 0;  // global index of row b's first tile
+  long long end = 0;    // global index past run `run` of row b
 
   __device__ __forceinline__ void span(int r, int& l, int& n) const {
     const int L = max(__ldg(lengths + r), 0);
@@ -73,41 +89,60 @@ struct Walk {
     span(r, l, n);
     return n > l ? (n - l + TK - 1) / TK : 0;
   }
-  // moves to the row that holds tile t (t never decreases)
+  // moves to the row and run that hold tile t (t never decreases)
   __device__ __forceinline__ void seek(long long t) {
     while (t >= first + count) {
       first += count;
       ++b;
       span(b, lo, len);
       count = len > lo ? (len - lo + TK - 1) / TK : 0;
+      nrun = row_runs(count, MR, RMIN);
+      run = -1;
+      end = first;
+    }
+    while (t >= end) {
+      ++run;
+      end = first + run_start(count, nrun, run + 1);
     }
   }
   // tile t's keys [k0, k1) of row b (after seek)
   __device__ __forceinline__ int k0(long long t) const {
     return lo + (int)(t - first) * TK;
   }
+  // the partial slot of the run seek found
+  __device__ __forceinline__ int slot() const { return b * MR + run; }
+
+  // the first run start at or past global tile x (T where none is)
+  __device__ long long run_ceil(int B, long long x) const {
+    long long f = 0;
+    for (int r = 0; r < B; ++r) {
+      const int c = tiles(r);
+      if (x < f + c) {
+        const int n = row_runs(c, MR, RMIN), q = c / n, rem = c % n;
+        const int u = (int)(x - f), big = rem * (q + 1);
+        int j = u < big ? u / (q + 1) : rem + (u - big) / q;
+        if (run_start(c, n, j) < u) ++j;
+        return f + run_start(c, n, j);
+      }
+      f += c;
+    }
+    return f;
+  }
 };
 
-__device__ __forceinline__ long long total_tiles(const Walk& w, int B) {
+// Worker i of NW: the runs whose first tiles lie in its even share of the
+// T live tiles, [i q + min(i, T % NW), ...) with q = T / NW; returns their
+// tiles [t0, t1).
+__device__ __forceinline__ void worker_run(const Walk& w, int B, int NW,
+                                           int i, long long& t0,
+                                           long long& t1) {
   long long total = 0;
   for (int r = 0; r < B; ++r) total += w.tiles(r);
-  return total;
-}
-
-// Worker i of NW takes q = T / NW tiles, one more while i < T % NW: its
-// run starts at i q + min(i, T % NW).  No run is empty unless q is 0.
-__device__ __forceinline__ void worker_run(long long total, int NW, int i,
-                                           long long& t0, long long& t1) {
   const long long q = total / NW, rem = total - q * NW;
-  t0 = i * q + min((long long)i, rem);
-  t1 = t0 + q + (i < rem ? 1 : 0);
-}
-// the worker whose run holds tile x
-__device__ __forceinline__ int worker_of(long long total, int NW,
-                                         long long x) {
-  const long long q = total / NW, rem = total - q * NW;
-  const long long big = rem * (q + 1);
-  return (int)(x < big ? x / (q + 1) : rem + (x - big) / q);
+  const long long s0 = i * q + min((long long)i, rem);
+  const long long s1 = s0 + q + (i < rem ? 1 : 0);
+  t0 = w.run_ceil(B, s0);
+  t1 = w.run_ceil(B, s1);
 }
 
 // ---- PTX helpers ---------------------------------------------------------
@@ -192,7 +227,8 @@ stream_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ v,
               const int* __restrict__ lengths, float* __restrict__ part_acc,
               float* __restrict__ part_ml, Keys keys, int B, int Hq, int Hkv,
-              int Dk, int Dv, int GB, int NW, int window, float scale_log2) {
+              int Dk, int Dv, int GB, int NW, int MR, int RMIN, int window,
+              float scale_log2) {
   constexpr int NP = 4 / XC;       // passes a stage
   constexpr int KPP = 32 / C;      // keys a pass
   constexpr int TK = NP * KPP;     // keys a tile
@@ -213,10 +249,9 @@ stream_kernel(const __nv_bfloat16* __restrict__ q,
   const uint32_t ring = smem_u32(smem_raw) +
                         warp * NS * NP * 2 * XC * SLOT + lane * 16;
 
-  Walk lw{lengths, keys.S, window, TK}, cw = lw;
-  const long long total = total_tiles(lw, B);
+  Walk lw{lengths, keys.S, window, TK, MR, RMIN}, cw = lw;
   long long t0, t1;
-  worker_run(total, NW, worker, t0, t1);
+  worker_run(lw, B, NW, worker, t0, t1);
 
   // the key rows of the next tile to load, resolved a tile before its
   // loads are issued so that a page-table read hides behind a tile's work
@@ -253,8 +288,8 @@ stream_kernel(const __nv_bfloat16* __restrict__ q,
   float qr[GBM][XC][8], acc[GBM][XC][8], m[GBM], l[GBM];
   int cur = -1;
 
-  // merge the lane groups (each saw other keys of the row), then group 0
-  // writes this worker's partial for row `cur`
+  // merge the lane groups (each saw other keys of the run), then group 0
+  // writes the partial of the run in slot `cur`
   auto flush = [&]() {
 #pragma unroll
     for (int off = C; off < 32; off *= 2) {
@@ -276,7 +311,7 @@ stream_kernel(const __nv_bfloat16* __restrict__ q,
           }
       }
     }
-    const size_t seg = (size_t)worker + cur;
+    const size_t seg = (size_t)cur;
     if (lane < C) {
 #pragma unroll
       for (int g = 0; g < GBM; ++g) {
@@ -312,9 +347,9 @@ stream_kernel(const __nv_bfloat16* __restrict__ q,
   }
   int stage = 0;
   for (long long t = t0;; ++t) {
-    // one flush site, at each row change and after the last tile
+    // one flush site, at each run change and after the last tile
     if (t < t1) cw.seek(t);
-    if (cur >= 0 && (t == t1 || cw.b != cur)) flush();
+    if (cur >= 0 && (t == t1 || cw.slot() != cur)) flush();
     if (t == t1) break;
     const long long tl = t + NS - 1;
     if (tl < t1) {
@@ -324,8 +359,8 @@ stream_kernel(const __nv_bfloat16* __restrict__ q,
     cp_commit();
     cp_wait<NS - 1>();   // this lane's chunks of tile t have landed
 
-    if (cw.b != cur) {
-      cur = cw.b;
+    if (cw.slot() != cur) {
+      cur = cw.slot();
 #pragma unroll
       for (int g = 0; g < GBM; ++g) {
 #pragma unroll
@@ -334,7 +369,7 @@ stream_kernel(const __nv_bfloat16* __restrict__ q,
           float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
           if (g < gn && ch < nkc)
             bf16x8_to_f32(__ldg(reinterpret_cast<const uint4*>(
-                              q + ((size_t)cur * Hq + h0 + g) * Dk + ch * 8)),
+                              q + ((size_t)cw.b * Hq + h0 + g) * Dk + ch * 8)),
                           f);
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
@@ -522,7 +557,8 @@ tc_kernel(const __nv_bfloat16* __restrict__ q,
           const __nv_bfloat16* __restrict__ v,
           const int* __restrict__ lengths, float* __restrict__ part_acc,
           float* __restrict__ part_ml, Keys keys, int B, int Hq, int Hkv,
-          int Dk, int Dv, int NW, int stages, int window, float scale_log2) {
+          int Dk, int Dv, int NW, int MR, int RMIN, int stages, int window,
+          float scale_log2) {
   constexpr int PANEL = BK * 128;   // bytes of a 64-column K/V panel
   constexpr int NSA = BK / 2;       // S accumulators a thread
   extern __shared__ uint8_t smem_raw[];
@@ -542,10 +578,9 @@ tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int h0 = hk * G + ht * 64;
   const int worker = blockIdx.x;
 
-  Walk walk{lengths, keys.S, window, BK};
-  const long long total = total_tiles(walk, B);
+  Walk walk{lengths, keys.S, window, BK, MR, RMIN};
   long long t0, t1;
-  worker_run(total, NW, worker, t0, t1);
+  worker_run(walk, B, NW, worker, t0, t1);
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -615,7 +650,7 @@ tc_kernel(const __nv_bfloat16* __restrict__ q,
     s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
     s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
     s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
-    const size_t seg = (size_t)worker + cur;
+    const size_t seg = (size_t)cur;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = r0 + 8 * half;
@@ -639,20 +674,20 @@ tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   int stage = 0, phase = 0;
   for (long long t = t0;; ++t) {
-    // one flush site, at each row change and after the last tile
+    // one flush site, at each run change and after the last tile
     if (t < t1) walk.seek(t);
-    if (cur >= 0 && (t == t1 || walk.b != cur)) flush();
+    if (cur >= 0 && (t == t1 || walk.slot() != cur)) flush();
     if (t == t1) break;
-    if (walk.b != cur) {
-      cur = walk.b;
-      // every consumer is done with the last row's Q (its wgmma waited)
+    if (walk.slot() != cur) {
+      cur = walk.slot();
+      // every consumer is done with the last run's Q (its wgmma waited)
       asm volatile("bar.sync 1, 256;" ::: "memory");
       for (int idx = tid; idx < 64 * kc16; idx += 256) {
         const int r = idx / kc16, ch = idx - r * kc16;
         uint4 w = make_uint4(0, 0, 0, 0);
         if (r < gn && ch < nkc)
           w = __ldg(reinterpret_cast<const uint4*>(
-              q + ((size_t)cur * Hq + h0 + r) * Dk + ch * 8));
+              q + ((size_t)walk.b * Hq + h0 + r) * Dk + ch * 8));
         const uint32_t dst = sQ + (ch >> 3) * 8192 + swz(r, ch & 7);
         asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(dst),
                      "r"(w.x), "r"(w.y), "r"(w.z), "r"(w.w)
@@ -759,7 +794,7 @@ tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// ---- combine: each row's segments -> out (B, Hq, Dv) --------------------
+// ---- combine: each row's runs -> out (B, Hq, Dv) -------------------------
 
 constexpr int COMBINE_THREADS = 128;  // one float4 of Dv <= 512 a thread
 
@@ -784,26 +819,15 @@ template <typename T>
 __global__ void __launch_bounds__(COMBINE_THREADS)
 combine(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
         T* __restrict__ out, const int* __restrict__ lengths, int B, int S,
-        int window, int TK, int NW, int Hq, int Dv) {
+        int window, int TK, int MR, int RMIN, int Hq, int Dv) {
   __shared__ float s_w[COMBINE_THREADS], s_red[COMBINE_THREADS / 32];
-  __shared__ int s_lo, s_hi;
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  if (tid == 0) {
-    Walk w{lengths, S, window, TK};
-    long long total = 0, first = 0;
-    int count = 0;
-    for (int r = 0; r < B; ++r) {
-      const int n = w.tiles(r);
-      if (r == b) first = total, count = n;
-      total += n;
-    }
-    // the workers whose runs meet this row's tiles: [lo, hi], none empty
-    s_lo = count > 0 ? worker_of(total, NW, first) : 0;
-    s_hi = count > 0 ? worker_of(total, NW, first + count - 1) : -1;
-  }
-  __syncthreads();
-  const int lo = s_lo, hi = s_hi;
-  auto ml = [&](int i) { return part_ml + (((size_t)i + b) * Hq + h) * 2; };
+  // this row's runs, slots b MR + [0, n): from its own length alone, so the
+  // merge below has the same shape whatever the other rows hold
+  const Walk w{lengths, S, window, TK, MR, RMIN};
+  const int lo = 0, hi = row_runs(w.tiles(b), MR, RMIN) - 1;
+  const size_t s0 = (size_t)b * MR;
+  auto ml = [&](int i) { return part_ml + ((s0 + i) * Hq + h) * 2; };
   float mt = -INFINITY;
   for (int i = lo + tid; i <= hi; i += COMBINE_THREADS)
     mt = fmaxf(mt, ml(i)[0]);
@@ -830,7 +854,7 @@ combine(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
 #pragma unroll 4
       for (int j = sl; j < n; j += SL) {
         const float4 a = *reinterpret_cast<const float4*>(
-            part_acc + (((size_t)base + j + b) * Hq + h) * Dv + c);
+            part_acc + ((s0 + base + j) * Hq + h) * Dv + c);
         const float wj = s_w[j];
         acc.x = fmaf(wj, a.x, acc.x);
         acc.y = fmaf(wj, a.y, acc.y);
@@ -874,7 +898,7 @@ struct Args {
   const int* lengths;
   void* out;
   float *part_acc, *part_ml;
-  int B, Hq, Hkv, Dk, Dv, heads, workers, window, tile;
+  int B, Hq, Hkv, Dk, Dv, heads, workers, window, tile, runs, rmin;
   float scale_log2;
 };
 
@@ -894,7 +918,7 @@ cudaError_t launch_stream(const Args& a, Keys keys, cudaStream_t stream) {
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), a.lengths, a.part_acc,
       a.part_ml, keys, a.B, a.Hq, a.Hkv, a.Dk, a.Dv, a.heads, a.workers,
-      a.window, a.scale_log2);
+      a.runs, a.rmin, a.window, a.scale_log2);
   return cudaGetLastError();
 }
 
@@ -926,8 +950,8 @@ cudaError_t launch_tc(const Args& a, Keys keys, cudaStream_t stream) {
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), a.lengths, a.part_acc,
-      a.part_ml, keys, a.B, a.Hq, a.Hkv, a.Dk, a.Dv, a.workers, stages,
-      a.window, a.scale_log2);
+      a.part_ml, keys, a.B, a.Hq, a.Hkv, a.Dk, a.Dv, a.workers, a.runs,
+      a.rmin, stages, a.window, a.scale_log2);
   return cudaGetLastError();
 }
 
@@ -942,14 +966,16 @@ cudaError_t tc_tiles(const Args& a, Keys keys, cudaStream_t stream) {
 // <= 1024 and Dv <= 512, 16-byte aligned pointers.
 static inline bool shapes_ok(const Args& a) {
   if (a.Dk <= 0 || a.Dv <= 0 || a.Dk > 1024 || a.Dv > 512 || a.Dk % 8 ||
-      a.Dv % 8 || a.Hkv <= 0 || a.Hq % a.Hkv || a.workers < 1 || a.heads < 1)
+      a.Dv % 8 || a.Hkv <= 0 || a.Hq % a.Hkv || a.workers < 1 || a.heads < 1 ||
+      a.runs < 1 || a.rmin < 1)
     return false;
   for (const void* p : {a.q, a.k, a.v})
     if (reinterpret_cast<uintptr_t>(p) % 16) return false;
   return true;
 }
 
-// The partials of (workers + B - 1) segments, then the combine.
+// The partials of B runs slots (a row's runs at b runs + j), then the
+// combine.
 template <typename Keys>
 cudaError_t launch(const Args& a, Keys keys, cudaStream_t stream) {
   if (!shapes_ok(a)) return cudaErrorInvalidValue;
@@ -976,7 +1002,7 @@ cudaError_t launch(const Args& a, Keys keys, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   combine<__nv_bfloat16><<<dim3(a.Hq, a.B), COMBINE_THREADS, 0, stream>>>(
       a.part_acc, a.part_ml, static_cast<__nv_bfloat16*>(a.out), a.lengths,
-      a.B, keys.S, a.window, a.tile, a.workers, a.Hq, a.Dv);
+      a.B, keys.S, a.window, a.tile, a.runs, a.rmin, a.Hq, a.Dv);
   return cudaGetLastError();
 }
 

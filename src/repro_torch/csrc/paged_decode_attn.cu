@@ -47,13 +47,15 @@ struct PagedKeys {
 }  // namespace
 
 // q (B,Hq,Dk), k pool (Hkv,P,T,Dk), v pool (Hkv,P,T,Dv), tables (B,N)
-// int32, lengths (B,) int32 -> out (B,Hq,Dv).  G, splits, tile and the
-// float32 scratch part_acc / part_ml as for prfaas_decode_attention.
+// int32, lengths (B,) int32 -> out (B,Hq,Dv).  G, splits, tile, runs,
+// rmin and the float32 scratch part_acc / part_ml as for
+// prfaas_decode_attention.
 PRFAAS_API int prfaas_paged_decode_attention(
     const void* q, const void* k, const void* v, const void* tables,
     const void* lengths, void* out, void* part_acc, void* part_ml, int B,
     int Hq, int Hkv, int P, int T, int N, int Dk, int Dv, int G, int window,
-    float scale, int splits, int tile, int dtype, void* stream) {
+    float scale, int splits, int tile, int runs,
+    int rmin, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(lengths);
   float* pa = static_cast<float*>(part_acc);
@@ -64,7 +66,7 @@ PRFAAS_API int prfaas_paged_decode_attention(
                        (1 << shift) == T ? shift : -1};
   if (dtype == kBF16) {
     decode_hopper::Args a{q, k, v, lens, out, pa, pm, B, Hq, Hkv, Dk, Dv, G,
-                          splits, window, tile,
+                          splits, window, tile, runs, rmin,
                           decode_hopper::scale_log2(scale)};
     return decode_hopper::launch(a, keys, s);
   }

@@ -39,14 +39,14 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _SIGNATURES = {
     "prfaas_flash_attention": [_P] * 4 + [_I] * 10 + [_F, _I, _P],
     "prfaas_decode_attention": [_P] * 7 + [_L] * 3 + [_I] * 8
-                               + [_F, _I, _I, _I, _P],
+                               + [_F] + [_I] * 5 + [_P],
     "prfaas_delta_fused": [_P] * 10 + [_L] + [_I] * 6 + [_P],
     "prfaas_gla_fused": [_P] * 9 + [_L] + [_I] * 6 + [_P],
     "prfaas_delta_chunked": [_P] * 9 + [_L] + [_I] * 6 + [_P],
     "prfaas_gla_chunked": [_P] * 8 + [_L] + [_I] * 6 + [_P],
     "prfaas_quantize_wire": [_P, _I, _P, _I, _P],
     "prfaas_paged_decode_attention": [_P] * 8 + [_I] * 10
-                                     + [_F, _I, _I, _I, _P],
+                                     + [_F] + [_I] * 5 + [_P],
     "prfaas_paged_prefill_attention": [_P] * 7 + [_I] * 10 + [_F, _I, _P],
 }
 

@@ -6,7 +6,9 @@ follows ``src/repro/kernels/ref.py::decode_attention_ref``.  bfloat16 runs
 the Hopper core ``csrc/decode_hopper.cuh`` (:func:`require_bf16_decode`),
 float32 the SIMT core ``csrc/decode_core.cuh``; :func:`split_plan` is the
 launch plan of both and :func:`tile_runs` the bf16 core's split of the
-live keys, as the kernels derive it on the device.
+live keys, as the kernels derive it on the device: each row is cut by its
+own length alone (:func:`row_runs`), so a row's result does not depend on
+its batch-mates.
 """
 from __future__ import annotations
 
@@ -24,6 +26,12 @@ _SMEM_MAX = 232448      # shared memory of a block on the H100
 _TC_SMEM_FIXED = 1024 + 64
 _STREAM_WARPS = 4       # bf16 stream: workers (warps) a block
 _STREAM_BLOCKS_PER_SM = 3
+# bf16: fewest keys a run of a row takes, and a row's runs <= spread x
+# workers / B, by core.  An MLA partial is 64 x 472 float32 (121 KB, two
+# tiles' bytes), so the tensor cores take long runs and few; a stream
+# partial is a few KB, so its runs are short and a row may take many
+_RUN_KEYS = {"wgmma": 256, "stream": 64}
+_RUN_SPREAD = {"wgmma": 4, "stream": 16}
 
 
 def decode_attention_ref(q, k_cache, v_cache, lengths, *, window: int = 0,
@@ -123,20 +131,34 @@ class DecodePlan:
     ``TC_GROUP``) or "stream" (bf16, smaller groups).  ``heads``: query
     heads a block (simt) or a worker (stream), 64 rows (wgmma).
     ``workers``: key splits per row (simt), workers per head tile (bf16).
-    ``tile``: keys a tile."""
+    ``tile``: keys a tile.  bf16 only: ``runs``, the most runs a row's
+    tiles are cut into, and ``rmin``, the fewest tiles a run takes
+    (:func:`row_runs`)."""
     core: str
     heads: int
     workers: int
     tile: int
+    runs: int = 1
+    rmin: int = 1
 
     def scratch(self, B: int, Hq: int, Dv: int, device):
         """The float32 partials: (accumulator, max/sum) of each split of
-        each row (simt) or of each of the workers + B - 1 segments
-        (bf16)."""
+        each row (simt) or of each row's runs, row b's run j at slot
+        ``b * runs + j`` (bf16)."""
         lead = ((B, Hq, self.workers) if self.core == "simt"
-                else (self.workers + B - 1, Hq))
+                else (B * self.runs, Hq))
         return (torch.empty((*lead, Dv), dtype=torch.float32, device=device),
                 torch.empty((*lead, 2), dtype=torch.float32, device=device))
+
+
+def _runs(core: str, want: int, B: int, live: int, tile: int):
+    """(runs, rmin) of a bf16 plan: runs of at least ``_RUN_KEYS`` keys,
+    at most ``want`` (every worker) a row and ``_RUN_SPREAD * want / B``,
+    so that the scratch stays within a few times the workers' count."""
+    rmin = _cdiv(_RUN_KEYS[core], tile)
+    runs = min(want, _cdiv(_RUN_SPREAD[core] * want, B),
+               _cdiv(_cdiv(live, tile), rmin))
+    return max(1, runs), rmin
 
 
 def split_plan(B: int, Hq: int, Hkv: int, Dk: int, Dv: int, S: int, dtype,
@@ -147,11 +169,12 @@ def split_plan(B: int, Hq: int, Hkv: int, Dk: int, Dv: int, S: int, dtype,
 
     float32: G query heads a block and each row's live keys cut into
     ``workers`` runs (about two blocks per SM, none shorter than
-    ``_KEYS_PER_SPLIT`` of the S positions).  bfloat16: the live tiles of
-    all rows are split evenly over ``workers`` per head tile (one block an
-    SM at the tensor cores; ``_STREAM_BLOCKS_PER_SM`` blocks of four warp
-    workers on the stream), never more than the tiles the rows could hold
-    (``window`` caps them), see :func:`tile_runs`."""
+    ``_KEYS_PER_SPLIT`` of the S positions).  bfloat16: each row's live
+    tiles are cut into runs by that row's length alone (:func:`row_runs`),
+    and the runs of all rows are dealt to ``workers`` per head tile (one
+    block an SM at the tensor cores; ``_STREAM_BLOCKS_PER_SM`` blocks of
+    four warp workers on the stream), never more than the runs the rows
+    could hold (``window`` caps them), see :func:`tile_runs`."""
     G = Hq // Hkv
     if dtype == torch.float32:
         g = _heads_per_block(G, Dv)
@@ -162,62 +185,72 @@ def split_plan(B: int, Hq: int, Hkv: int, Dk: int, Dv: int, S: int, dtype,
     live = min(S, window) if window > 0 else S   # most live keys a row
     if G >= TC_GROUP:
         tile = tc_tile(Dk, Dv)
-        want = sms // (Hkv * _cdiv(G, 64))
-        return DecodePlan("wgmma", 64,
-                          max(1, min(want, B * _cdiv(live, tile))), tile)
+        want = max(1, sms // (Hkv * _cdiv(G, 64)))
+        runs, rmin = _runs("wgmma", want, B, live, tile)
+        return DecodePlan("wgmma", 64, max(1, min(want, B * runs)), tile,
+                          runs, rmin)
     C, XC = stream_shape(Dk, Dv)
     heads, tile = min(G, 8 // XC), (4 // XC) * (32 // C)
     # one wave: a second, partial one would double the time of its blocks
-    want = _STREAM_BLOCKS_PER_SM * sms // (Hkv * _cdiv(G, heads))
-    blocks = max(1, min(want, _cdiv(B * _cdiv(live, tile), _STREAM_WARPS)))
-    return DecodePlan("stream", heads, _STREAM_WARPS * blocks, tile)
+    want = max(1, _STREAM_BLOCKS_PER_SM * sms // (Hkv * _cdiv(G, heads)))
+    runs, rmin = _runs("stream", _STREAM_WARPS * want, B, live, tile)
+    blocks = max(1, min(want, _cdiv(B * runs, _STREAM_WARPS)))
+    return DecodePlan("stream", heads, _STREAM_WARPS * blocks, tile, runs,
+                      rmin)
 
 
-def tile_runs(lengths, S: int, window: int, tile: int, workers: int):
+def _span(L: int, S: int, window: int, tile: int):
+    """Row of length L: its live keys [lo, n) and their tile count."""
+    L = max(int(L), 0)
+    n = min(L, S)
+    lo = max(0, L - window) if window > 0 else 0
+    return lo, n, (_cdiv(n - lo, tile) if n > lo else 0)
+
+
+def row_runs(count: int, runs: int, rmin: int):
+    """The runs of a row of ``count`` live tiles, as the kernels cut it:
+    n = min(runs, ceil(count / rmin)) of them, run j from tile j (count //
+    n) + min(j, count % n).  Returns [(first tile, end tile)]."""
+    if count <= 0:
+        return []
+    n = min(runs, _cdiv(count, rmin))
+    q, rem = divmod(count, n)
+    starts = [j * q + min(j, rem) for j in range(n + 1)]
+    return list(zip(starts[:-1], starts[1:]))
+
+
+def tile_runs(lengths, S: int, window: int, tile: int, workers: int,
+              runs: int, rmin: int):
     """The bf16 core's split of the live keys, as each kernel block derives
     it from ``lengths`` on the device: row b's live keys [max(0, L_b -
-    window), min(L_b, S)) are cut into tiles of ``tile`` keys, the tiles of
-    all rows are numbered in row order, and each of the W workers takes a
-    run of T // W of them, one more for the first T % W (worker i starts
-    at i (T // W) + min(i, T % W)).  Returns, for each worker, its (row,
-    first key, end key) segments; the segment of worker i on row b is
-    partial i + b."""
-    spans = []
-    for L in lengths:
-        L = max(int(L), 0)
-        n = min(L, S)
-        lo = max(0, L - window) if window > 0 else 0
-        spans.append((lo, n, _cdiv(n - lo, tile) if n > lo else 0))
-    total = sum(c for _, _, c in spans)
-    q, rem = divmod(total, workers)
-    runs = []
-    for i in range(workers):
-        t0 = i * q + min(i, rem)
-        t1 = t0 + q + (i < rem)
-        segs, first = [], 0
-        for b, (lo, n, c) in enumerate(spans):
-            a, e = max(t0, first), min(t1, first + c)
-            if a < e:
-                segs.append((b, lo + (a - first) * tile,
-                             min(n, lo + (e - first) * tile)))
-            first += c
-        runs.append(segs)
-    return runs
-
-
-def row_workers(first: int, count: int, total: int, workers: int):
-    """The workers whose runs (:func:`tile_runs`) meet a row's tiles
-    [first, first + count) of ``total``, as the combine kernel finds them:
-    from the worker of its first tile to that of its last."""
-    if count <= 0:
-        return range(0)
-    q, rem = divmod(total, workers)
-
-    def worker_of(x):
+    window), min(L_b, S)) are cut into tiles of ``tile`` keys and its
+    tiles into runs by its own length (:func:`row_runs`); the runs of all
+    rows, numbered in row order, go to the worker whose even share of the
+    T live tiles, [i T // W + min(i, T % W), ...), holds their first tile.
+    Returns, for each worker, its (row, first key, end key, partial slot)
+    runs in order; row b's run j writes slot ``b * runs + j``."""
+    items, first = [], 0
+    for b, L in enumerate(lengths):
+        lo, n, count = _span(L, S, window, tile)
+        for j, (t0, t1) in enumerate(row_runs(count, runs, rmin)):
+            items.append((first + t0, (b, lo + t0 * tile,
+                                       min(n, lo + t1 * tile),
+                                       b * runs + j)))
+        first += count
+    q, rem = divmod(first, workers)
+    out = [[] for _ in range(workers)]
+    for g, item in items:
         big = rem * (q + 1)
-        return x // (q + 1) if x < big else rem + (x - big) // q
+        w = g // (q + 1) if g < big else rem + (g - big) // q
+        out[w].append(item)
+    return out
 
-    return range(worker_of(first), worker_of(first + count - 1) + 1)
+
+def row_slots(L: int, S: int, window: int, tile: int, runs: int, rmin: int):
+    """The partial slots the combine kernel merges for a row of length L,
+    in its order: its runs' slots j = 0 .. n - 1 (offset by ``b * runs``
+    for row b), from that row's length alone."""
+    return range(len(row_runs(_span(L, S, window, tile)[2], runs, rmin)))
 
 
 def require_bf16_decode(name: str, Dk: int, Dv: int, *tensors):
@@ -305,8 +338,8 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
         part_ml.data_ptr(), *rows, B, Hq, Hkv, S, Dk, Dv, plan.heads,
-        int(window), float(scale), plan.workers, plan.tile,
-        _build.dtype_code(q), _build.stream_ptr(q))
+        int(window), float(scale), plan.workers, plan.tile, plan.runs,
+        plan.rmin, _build.dtype_code(q), _build.stream_ptr(q))
     _build.check(name, err)
     _build.LAUNCHES[name] += 1
     return out

@@ -86,7 +86,7 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, *,
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(), B, Hq, Hkv, P, T, N, Dk, Dv,
         plan.heads, int(window), float(scale), plan.workers, plan.tile,
-        _build.dtype_code(q), _build.stream_ptr(q))
+        plan.runs, plan.rmin, _build.dtype_code(q), _build.stream_ptr(q))
     _build.check(name, err)
     _build.LAUNCHES[name] += 1
     return out

@@ -10,6 +10,13 @@ serves, self-attention only:
     chunk over pool pages + dense suffix through the paged-prefill kernel;
     a speculative verify's q positions (dense) through the flash-decode
     kernel once a position.
+  * SWA (``kind="swa"``): GQA whose prefill and chunks pass ``window`` to
+    the flash kernel (a chunk keeps the whole prior and masks it); decode
+    caches are rings of ``W_buf = min(window, capacity)`` rows, written at
+    ``pos % W_buf`` (dense) or through the slot's private ring table
+    (paged) and read over ``min(L + 1, W_buf)`` keys.  A speculative
+    verify saves the rows its steps will ring-write and puts back the
+    rejected ones (:func:`ring_save`, :func:`ring_restore`).
   * MLA: prefill decompresses K/V into MHA form (flash kernel); decode runs
     the absorbed form, MQA over the latent cache (flash-decode kernel, or
     the paged one over the latent pools).
@@ -17,9 +24,8 @@ serves, self-attention only:
 Caches keep the reference's layouts: GQA ``{"k", "v"}`` sequence-major
 ``(B, S, Hkv, D)``, MLA ``{"ckv": (B, S, R), "kpe": (B, S, Rp)}``; paged
 pools ``(Hkv, P, T, D)`` and ``(P, T, R)`` / ``(P, T, Rp)``.  Decode writes
-the new token's K/V into the given buffers in place.  Sliding-window
-attention (ring caches) and cross-attention raise ``NotImplementedError``
-until their slice lands.
+the new token's K/V into the given buffers in place.  Cross-attention
+raises ``NotImplementedError`` until its slice lands.
 """
 from __future__ import annotations
 
@@ -31,10 +37,20 @@ from repro_torch.models.layers import apply_rope, rms_norm
 
 
 def _check(spec: AttentionSpec):
-    if spec.kind not in ("full", "mla") or spec.is_cross:
+    if spec.kind not in ("full", "swa", "mla") or spec.is_cross:
         raise NotImplementedError(f"attention kind {spec.kind!r} is not "
-                                  "ported yet (ported: self-attention GQA "
-                                  "and MLA)")
+                                  "ported yet (ported: self-attention GQA, "
+                                  "SWA and MLA)")
+
+
+def is_ring(spec) -> bool:
+    """A sliding-window block, whose decode cache is a ring."""
+    return (isinstance(spec, AttentionSpec) and spec.kind == "swa"
+            and spec.window > 0)
+
+
+def _window(spec: AttentionSpec) -> int:
+    return spec.window if spec.kind == "swa" else 0
 
 
 def _lin(p, x):
@@ -73,7 +89,7 @@ def gqa_forward(p, x, spec: AttentionSpec, positions, *, use_kernels=True):
     """Prefill GQA.  Returns (y, {"k", "v": (B, S, Hkv, D)})."""
     _check(spec)
     q, k, v = _gqa_qkv(p, x, spec, positions)
-    o = ops.attention(q, k, v, causal=True, q_offset=0,
+    o = ops.attention(q, k, v, causal=True, window=_window(spec), q_offset=0,
                       use_kernel=use_kernels)
     y = _merge_heads(o) @ p["wo"]["w"]
     return y, {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}
@@ -103,8 +119,8 @@ def gqa_forward_chunk(p, x, spec: AttentionSpec, positions, cache, *,
         y = _merge_heads(o) @ p["wo"]["w"]
         return y, {**cache, "k": k_full, "v": v_full}
     o = ops.attention(q, k_full.transpose(1, 2), v_full.transpose(1, 2),
-                      causal=True, q_offset=cache["k"].shape[1],
-                      use_kernel=use_kernels)
+                      causal=True, window=_window(spec),
+                      q_offset=cache["k"].shape[1], use_kernel=use_kernels)
     y = _merge_heads(o) @ p["wo"]["w"]
     return y, {"k": k_full, "v": v_full}
 
@@ -114,7 +130,10 @@ def gqa_decode(p, x, spec: AttentionSpec, cache, lengths, *,
     """Dense GQA decode.  x: (B,1,d); cache {"k", "v": (B, S_cap, Hkv, D)};
     lengths (B,).  The new token's K/V go in place at ``lengths`` modulo
     the buffer (the reference's write index), then the query attends over
-    ``min(lengths + 1, S_cap)`` keys.  Returns (y, cache)."""
+    ``min(lengths + 1, S_cap)`` keys.  An SWA cache is a ring of S_cap =
+    ``min(window, capacity)`` rows: it holds exactly the window's keys, in
+    ring order (softmax is order-free, and RoPE was applied at the write),
+    so the kernel takes no window.  Returns (y, cache)."""
     _check(spec)
     B = x.shape[0]
     pos = lengths.to(x.device).long()[:, None]
@@ -184,16 +203,23 @@ def gqa_decode_paged(p, x, spec: AttentionSpec, cache, lengths, tables, *,
     (Hkv, P, T, D)}, ``tables["seq"]`` (B, capacity/T) maps each slot's
     logical pages to physical ones.  The new K/V are written into the pool
     in place through the table; inactive slots (tables at the sink page)
-    write into the sink."""
+    write into the sink.  An SWA block writes and reads through the slot's
+    private ring table ``tables["ring"]`` instead: ring row ``pos % W_buf``
+    (``W_buf = min(window, capacity)``), ``min(L + 1, W_buf)`` keys."""
     _check(spec)
     pos = lengths.to(x.device).long()[:, None]
     q, k, v = _gqa_qkv(p, x, spec, pos)
     kbuf, vbuf = cache["k"], cache["v"]
-    tbl = tables["seq"]
-    phys, off = _page_slot(tbl, pos[:, 0], page_tokens, kbuf.shape[1] - 1)
+    if is_ring(spec):
+        w_buf = min(spec.window, capacity)
+        tbl = tables["ring"][:, :w_buf // page_tokens]
+        wpos = pos[:, 0] % w_buf
+    else:
+        w_buf, tbl, wpos = capacity, tables["seq"], pos[:, 0]
+    phys, off = _page_slot(tbl, wpos, page_tokens, kbuf.shape[1] - 1)
     kbuf[:, phys, off] = k[:, :, 0].transpose(0, 1).to(kbuf.dtype)
     vbuf[:, phys, off] = v[:, :, 0].transpose(0, 1).to(vbuf.dtype)
-    eff_len = torch.clamp(lengths.to(x.device) + 1, max=capacity)
+    eff_len = torch.clamp(lengths.to(x.device) + 1, max=w_buf)
     o = ops.paged_decode_attention(q[:, :, 0], kbuf, vbuf, tbl, eff_len,
                                    use_kernel=use_kernels)
     y = _merge_heads(o[:, :, None]) @ p["wo"]["w"]
@@ -345,6 +371,96 @@ def mla_decode_paged(p, x, spec: AttentionSpec, cache, lengths, tables, *,
         use_kernel=use_kernels)                               # (B,H,R)
     return _mla_decode_out(p, spec, o_lat, x), {"ckv": ckv_buf,
                                                 "kpe": kpe_buf}
+
+
+# --------------------------------------- speculative ring rollback (SWA)
+#
+# A verify's step j ring-writes row (L + j) % W_buf of each slot, which held
+# position L + j - W_buf: still in the window of the steps after a rejected
+# one.  So the q rows are saved before the verify and the rejected ones put
+# back after it (accepted rows are rewritten with their own values, so the
+# write needs no mask).  Append-only leaves need nothing: a rejected row is
+# rewritten before any kept token reads it.  The save and the restore fill
+# and read buffers made once (``Model.verify_buffers``), so a verify block
+# stays one CUDA graph.
+
+
+def _ring_span(L: int, W: int, device):
+    """The positions a ring of W rows holds at length L, [start, L) with
+    start = max(0, L - W), and their ring rows ``pos % W``."""
+    start = max(0, L - W)
+    return start, torch.arange(start, L, device=device) % W
+
+
+def ring_place(x, W: int, dim: int):
+    """A sequence along ``dim`` (positions 0 .. S - 1) -> a ring of W rows
+    there: the last W positions at ring row ``pos % W``, zeros where S < W."""
+    S = x.shape[dim]
+    start, rows = _ring_span(S, W, x.device)
+    ring = x.new_zeros(x.shape[:dim] + (W,) + x.shape[dim + 1:])
+    return ring.index_copy_(dim, rows, x.narrow(dim, start, S - start))
+
+
+def ring_unplace(ring, L: int, dim: int):
+    """The inverse of :func:`ring_place` at length L: a sequence of L rows
+    along ``dim``, [max(0, L - W), L) read from ring row ``pos % W``, zeros
+    below."""
+    start, rows = _ring_span(L, ring.shape[dim], ring.device)
+    out = ring.new_zeros(ring.shape[:dim] + (L,) + ring.shape[dim + 1:])
+    out.narrow(dim, start, L - start).copy_(ring.index_select(dim, rows))
+    return out
+
+
+def ring_rows(lengths, q: int, w_buf: int):
+    """(B, q) ring rows the q verify steps write: (L + j) % W_buf."""
+    steps = torch.arange(q, device=lengths.device)[None]
+    return (lengths.long()[:, None] + steps) % w_buf
+
+
+def ring_save(cache, saved, lengths, spec: AttentionSpec, tables=None, *,
+              page_tokens=None, capacity=None):
+    """Copy the rows the next ``q`` steps will ring-write into ``saved``:
+    dense leaves (R, B, W_buf, Hkv, D) give (R, B, q, Hkv, D), paged pools
+    (R, Hkv, P, T, D) through the ring table give (R, Hkv, B, q, D).  The
+    rows' addresses go into ``saved["at"]`` (dense: the ring rows; paged:
+    page and in-page row) for :func:`ring_restore`."""
+    q = saved["k"].shape[2 if tables is None else 3]
+    B = lengths.shape[0]
+    if tables is None:
+        rows = ring_rows(lengths, q, cache["k"].shape[2])
+        saved["at"].copy_(rows)
+        b = torch.arange(B, device=rows.device)[:, None]
+        for n in ("k", "v"):
+            saved[n].copy_(cache[n][:, b, rows])
+        return
+    w_buf = min(spec.window, capacity)
+    wpos = ring_rows(lengths, q, w_buf)
+    tbl = tables["ring"][:, :w_buf // page_tokens].long()
+    phys = tbl.gather(1, wpos // page_tokens)
+    saved["at"].copy_(torch.stack([phys, wpos % page_tokens]))
+    for n in ("k", "v"):
+        saved[n].copy_(cache[n][:, :, phys, wpos % page_tokens])
+
+
+def ring_restore(cache, saved, accept, paged: bool):
+    """Put the saved rows back where step j was rejected (j > accept[b]),
+    in place."""
+    q = saved["k"].shape[3 if paged else 2]
+    rej = (torch.arange(q, device=accept.device)[None]
+           > accept[:, None])                                  # (B, q)
+    for n in ("k", "v"):
+        buf = cache[n]
+        if paged:
+            phys, off = saved["at"][0], saved["at"][1]
+            cur = buf[:, :, phys, off]                         # (R,Hkv,B,q,D)
+            buf[:, :, phys, off] = torch.where(rej[None, None, :, :, None],
+                                               saved[n], cur)
+        else:
+            rows = saved["at"]
+            b = torch.arange(rows.shape[0], device=rows.device)[:, None]
+            cur = buf[:, b, rows]                              # (R,B,q,Hkv,D)
+            buf[:, b, rows] = torch.where(rej[None, :, :, None, None],
+                                          saved[n], cur)
 
 
 # ----------------------------------------------------------- dispatch

@@ -11,7 +11,8 @@ Caches keep the reference's keys and shapes: ``{"groups": [{"b0":
 {"state", "conv"}, ..., "b3": {"ckv", "kpe"}}]}`` with stacked ``(R, B, S,
 ...)`` leaves; every block invocation, shared or not, has its own cache.
 
-Full-attention blocks cache ``{"k", "v"}`` (R, B, S, Hkv, D).  With
+Full-attention blocks cache ``{"k", "v"}`` (R, B, S, Hkv, D),
+sliding-window ones the same leaves as rings of ``min(window, S)`` rows.  With
 ``tables`` (paged KV, ``repro_torch.models.paged``) the attention leaves
 of the caches are shared page pools instead, addressed through per-slot
 block tables.
@@ -19,8 +20,8 @@ block tables.
 The serving path's MoE is always the exact dropless form (the reference's
 inference default): a sorted loop over experts in prefill, every expert at
 once in decode, where it must not sync the host.  Architectures whose blocks the port does not serve
-yet (encoders, image prefixes, cross-attention, sliding windows, mixers
-other than KDA/GDN, Mamba2, GQA and MLA) raise ``NotImplementedError`` at
+yet (encoders, image prefixes, cross-attention, mixers other
+than KDA/GDN, Mamba2, GQA, SWA and MLA) raise ``NotImplementedError`` at
 construction.  Training (``train_loss``) builds no caches; it runs dense
 and FFN-less blocks, and raises ``NotImplementedError`` on a MoE block
 (capacity MoE and its aux loss are ROADMAP A10).
@@ -351,19 +352,41 @@ class Model:
                    and b.mixer.kind == "full" and b.ffn.kind == "dense"
                    for g in self.cfg.groups for b in g.blocks)
 
-    def verify_buffers(self, caches, q: int):
-        """The snapshot buffers a scan verify of ``q`` positions fills, in
-        the caches' group structure: for every O(1) mixer leaf (``state``,
-        ``conv``; attention leaves need no rollback) a zeroed ``(q - 1, R,
-        B, ...)`` buffer, to hold the leaf after each step but the last
-        (the last is the leaf itself).  A model of attention blocks alone
-        gets none."""
-        return [{key: {n: torch.zeros((q - 1,) + leaf.shape,
-                                      dtype=leaf.dtype, device=leaf.device)
-                       for n, leaf in leaves.items()
-                       if n not in _ATTN_LEAVES}
-                 for key, leaves in gc.items()}
-                for gc in caches["groups"]]
+    def verify_buffers(self, caches, q: int, batch: int | None = None,
+                       paged: bool = False):
+        """The buffers a scan verify of ``q`` positions fills, in the
+        caches' group structure.  ``snaps``: for every O(1) mixer leaf
+        (``state``, ``conv``) a zeroed ``(q - 1, R, B, ...)`` buffer, to
+        hold the leaf after each step but the last (the last is the leaf
+        itself).  ``rings``: for every sliding-window block, the q rows its
+        steps will ring-write, saved before them (``attention.ring_save``:
+        (R, B, q, Hkv, D) dense, (R, Hkv, B, q, D) over ``paged`` pools),
+        and their addresses.  Other attention leaves need no rollback.
+        ``batch``: the slots (read off a dense leaf when not given)."""
+        snaps, rings = [], []
+        for g, gc in zip(self.cfg.groups, caches["groups"]):
+            snaps.append({key: {n: torch.zeros((q - 1,) + leaf.shape,
+                                               dtype=leaf.dtype,
+                                               device=leaf.device)
+                                for n, leaf in leaves.items()
+                                if n not in _ATTN_LEAVES}
+                          for key, leaves in gc.items()})
+            ring = {}
+            for bi, b in enumerate(g.blocks):
+                if not attn_mod.is_ring(b.mixer):
+                    continue
+                k = gc[f"b{bi}"]["k"]
+                B = k.shape[1] if batch is None else batch
+                R, Hkv, D = k.shape[0], b.mixer.kv_heads, b.mixer.head_dim
+                shape = (R, Hkv, B, q, D) if paged else (R, B, q, Hkv, D)
+                ring[f"b{bi}"] = {
+                    n: torch.zeros(shape, dtype=k.dtype, device=k.device)
+                    for n in ("k", "v")}
+                ring[f"b{bi}"]["at"] = torch.zeros(
+                    (2, B, q) if paged else (B, q), dtype=torch.long,
+                    device=k.device)
+            rings.append(ring)
+        return {"snaps": snaps, "rings": rings, "paged": paged}
 
     def decode_verify(self, params, seq, caches, lengths, tables=None,
                       page_tokens=None, capacity=None, pending=None):
@@ -377,12 +400,14 @@ class Model:
         runs q steps of the exact :meth:`decode_step`, copying every O(1)
         mixer leaf after each step but the last into ``pending`` (from
         :meth:`verify_buffers`, allocated here when not given), so
-        :meth:`commit_verify` can rewind each slot to its accepted step.
-        The attention leaves need no rollback: a rejected row is rewritten
-        before any kept token reads it."""
+        :meth:`commit_verify` can rewind each slot to its accepted step;
+        a sliding-window block's ring rows the steps will write are saved
+        first.  The other attention leaves need no rollback: a rejected row
+        is rewritten before any kept token reads it."""
         q = seq.shape[1]
         if pending is None:
-            pending = self.verify_buffers(caches, q)
+            pending = self.verify_buffers(caches, q, seq.shape[0],
+                                          paged=tables is not None)
         if tables is None and self._verify_parallel:
             def block(b, p, x, cur):
                 y, new = attn_mod.gqa_decode_verify(
@@ -392,6 +417,13 @@ class Model:
 
             x = self._each_block(params, params["embed"][seq], caches, block)
             return self._logits(params, x), caches, pending
+        for g, gc, rg in zip(self.cfg.groups, caches["groups"],
+                             pending["rings"]):
+            for key, saved in rg.items():
+                attn_mod.ring_save(gc[key], saved, lengths,
+                                   g.blocks[int(key[1:])].mixer, tables,
+                                   page_tokens=page_tokens,
+                                   capacity=capacity)
         logits = []
         for j in range(q):
             lg, caches = self.decode_step(params, seq[:, j], caches,
@@ -399,7 +431,7 @@ class Model:
                                           capacity)
             logits.append(lg)
             if j < q - 1:
-                for gc, sg in zip(caches["groups"], pending):
+                for gc, sg in zip(caches["groups"], pending["snaps"]):
                     for key, leaves in sg.items():
                         for name, buf in leaves.items():
                             buf[j].copy_(gc[key][name])
@@ -408,12 +440,17 @@ class Model:
     def commit_verify(self, caches, pending, accept):
         """Rewind every O(1) mixer leaf, in place, to its state after step
         ``accept[b]`` of the verify that filled ``pending`` (step j is kept
-        iff ``j <= accept[b]``); with no O(1) leaf (an attention model)
-        there is nothing to rewind.  (The reference's also takes the
-        lengths and tables, for its SWA ring rollback; SWA is not
-        ported.)"""
+        iff ``j <= accept[b]``), and put back the ring rows of the rejected
+        steps of every sliding-window block; with neither (a full-attention
+        model) there is nothing to rewind.  (The reference's also takes the
+        pre-verify lengths and the tables: here the verify kept the ring
+        rows' addresses in ``pending``.)"""
         accept = accept.long()
-        for gc, sg in zip(caches["groups"], pending):
+        for gc, rg in zip(caches["groups"], pending["rings"]):
+            for key, saved in rg.items():
+                attn_mod.ring_restore(gc[key], saved, accept,
+                                      pending["paged"])
+        for gc, sg in zip(caches["groups"], pending["snaps"]):
             for key, leaves in sg.items():
                 for name, snaps in leaves.items():
                     cur = gc[key][name]                       # (R, B, ...)
@@ -446,7 +483,8 @@ class Model:
                         "ckv": zeros((R, B, capacity, m.mla_kv_rank), dt),
                         "kpe": zeros((R, B, capacity, m.mla_rope_dim), dt)}
                 elif isinstance(m, AttentionSpec):
-                    shape = (R, B, capacity, m.kv_heads, m.head_dim)
+                    shape = (R, B, m.kv_cache_tokens(capacity), m.kv_heads,
+                             m.head_dim)
                     gc[f"b{bi}"] = {"k": zeros(shape, dt),
                                     "v": zeros(shape, dt)}
                 else:
@@ -472,14 +510,19 @@ def _pad_seq(x, to: int):
 
 def prepare_decode_caches(cfg: ModelConfig, caches, capacity: int):
     """Place prefill-produced caches into decode buffers of ``capacity``:
-    GQA K/V and MLA latents are zero-padded to capacity, O(1) states pass
-    through."""
+    GQA K/V and MLA latents are zero-padded to capacity, a sliding-window
+    block keeps its last ``window`` rows ring-placed at ``pos % window``
+    (where the window is below capacity), O(1) states pass through."""
     out = []
     for g, gc in zip(cfg.groups, caches["groups"]):
         placed = {}
         for bi, b in enumerate(g.blocks):
             c = gc[f"b{bi}"]
-            if isinstance(b.mixer, AttentionSpec):
+            m = b.mixer
+            if attn_mod.is_ring(m) and capacity > m.window:
+                c = {k: attn_mod.ring_place(v, m.window, 2)
+                     for k, v in c.items()}
+            elif isinstance(m, AttentionSpec):
                 c = {k: _pad_seq(v, capacity) for k, v in c.items()}
             placed[f"b{bi}"] = c
         out.append(placed)

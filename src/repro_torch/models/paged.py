@@ -6,6 +6,8 @@ addressed through per-slot block tables:
 
   * full attention:  ``k`` / ``v`` pools ``(R, Hkv, P, T, D)``
   * MLA latents:     ``ckv`` ``(R, P, T, rank)``, ``kpe`` ``(R, P, T, rope)``
+  * SWA attention:   the same ``k`` / ``v`` pool leaves, addressed through
+    a ring table (the ring is paged too, from the same pool)
   * linear state:    unchanged per-slot leaves (O(1) per request)
 
 ``P = num_pool_pages + 1``: the extra *sink* page (id ``num_pool_pages``,
@@ -16,9 +18,11 @@ id addresses both the metadata block and the device page.
 
 Each slot's seq table ``(num_slots, capacity / T)`` lists its append-only
 pages; the pages covering a prompt's full blocks are prefix-shareable
-(other slots map them read-only through BlockPool ref-counts).  The
-reference's SWA ring tables are a later slice: sliding-window layers raise
-``NotImplementedError`` here, as they do at ``Model`` construction.
+(other slots map them read-only through BlockPool ref-counts).  Its ring
+table ``(num_slots, W_buf / T)`` lists its SWA ring pages, always its own:
+the ring at length L is only valid for resuming at exactly L, so a shared
+prefix's ring travels as an exact-length snapshot payload copied into the
+new slot's own pages at admission.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import AttentionSpec, ModelConfig
+from repro_torch.models.attention import is_ring, ring_place, ring_unplace
 from repro_torch.models.kvcache import dequantize_cache_from_wire
 from repro_torch.models.model import torch_dtype
 from repro_torch.models.tree import tree_leaves
@@ -38,6 +43,8 @@ class PagedLayout:
     num_pages: int              # pool pages (sink excluded)
     capacity: int
     seq_cols: int               # seq table width (0: no full/MLA layers)
+    ring_cols: int = 0          # ring table width (0: no SWA layers)
+    ring_tokens: int = 0        # W_buf of the SWA layers (0 if none)
 
     @property
     def sink(self) -> int:
@@ -49,9 +56,7 @@ class PagedLayout:
 
 
 def _is_seq(m) -> bool:
-    if isinstance(m, AttentionSpec) and m.kind == "swa" and m.window > 0:
-        raise NotImplementedError("paged SWA ring buffers are not ported yet")
-    return isinstance(m, AttentionSpec)
+    return isinstance(m, AttentionSpec) and not is_ring(m)
 
 
 def has_paged_prefill(cfg: ModelConfig) -> bool:
@@ -72,13 +77,26 @@ def paged_layout(cfg: ModelConfig, capacity: int, page_tokens: int,
         raise ValueError(f"capacity {capacity} not a multiple of page "
                          f"size {T}")
     has_seq = False
+    rings = set()
     for g in cfg.groups:
         for b in g.blocks:
             if b.cross is not None:
                 raise ValueError("paged KV does not support cross-attention")
-            has_seq |= _is_seq(b.mixer)
+            m = b.mixer
+            if is_ring(m):
+                w_buf = min(m.window, capacity)
+                if w_buf % T:
+                    raise ValueError(f"SWA buffer {w_buf} not a multiple of "
+                                     f"page size {T}")
+                rings.add(w_buf)
+            has_seq |= _is_seq(m)
+    if len(rings) > 1:
+        raise ValueError("paged KV requires one SWA window per model, got "
+                         f"{sorted(rings)}")
+    ring_tokens = rings.pop() if rings else 0
     return PagedLayout(page_tokens=T, num_pages=num_pages, capacity=capacity,
-                       seq_cols=capacity // T if has_seq else 0)
+                       seq_cols=capacity // T if has_seq else 0,
+                       ring_cols=ring_tokens // T, ring_tokens=ring_tokens)
 
 
 def _state_shapes(m, batch: int, dt):
@@ -195,6 +213,16 @@ def _pageify_seq(leaf, c: int, L: int, T: int):
     return span.reshape(R, n, T, span.shape[-1])             # (R,n,T,d)
 
 
+def _ring_from_payload(leaf, L: int, W: int, T: int):
+    """The exact SWA ring at length L from the request leaf (R, 1, L, Hkv,
+    D) (a suffix prefill's merged caches hold exact rows in the window, the
+    prior's un-rung from the snapshot).  Returns pages (R, Hkv, W / T, T,
+    D)."""
+    R, _, _, Hkv, D = leaf.shape
+    ring = ring_place(leaf[:, 0, :L], W, 1)
+    return ring.reshape(R, W // T, T, Hkv, D).permute(0, 3, 1, 2, 4)
+
+
 def build_admit_payload(cfg: ModelConfig, payload, layout: PagedLayout,
                         c: int, L: int):
     """Split one request's prefill caches into paged-admission tensors.
@@ -204,22 +232,26 @@ def build_admit_payload(cfg: ModelConfig, payload, layout: PagedLayout,
     prefill's merged prior + suffix caches.  ``c``: device-cached prefix
     (page-aligned; its pages are shared, not rewritten).
 
-    Returns ``{"seq": ..., "state": ...}``, lists over the groups of dicts
-    over the blocks (None where a group has no block of the kind).  The
-    state part doubles as the snapshot payload ``insert_device`` keeps when
-    L is page-aligned.  Wire-form seq leaves stay int8 (the engine's page
-    write dequantizes them); wire-form state leaves, if any, dequantize
-    here.  A table-direct suffix payload (an ``off`` marker in a GQA block,
+    Returns ``{"seq": ..., "ring": ..., "state": ...}``, lists over the
+    groups of dicts over the blocks (None where a group has no block of
+    the kind).  The ring and state parts double as the snapshot payload
+    ``insert_device`` keeps when L is page-aligned.  Wire-form seq leaves
+    stay int8 (the engine's page write dequantizes them); wire-form ring
+    and state leaves dequantize here.  A table-direct suffix payload (an ``off`` marker in a GQA block,
     see :func:`build_prior`) holds only rows [off, L), so its pages start
     at row ``c - off``."""
-    T = layout.page_tokens
-    seq_g, state_g = [], []
+    T, W = layout.page_tokens, layout.ring_tokens
+    seq_g, ring_g, state_g = [], [], []
     for gi, g in enumerate(cfg.groups):
-        seq_b, state_b = {}, {}
+        seq_b, ring_b, state_b = {}, {}, {}
         for bi, b in enumerate(g.blocks):
             pc = payload["groups"][gi][f"b{bi}"]
             key = f"b{bi}"
-            if _is_seq(b.mixer):
+            if is_ring(b.mixer):
+                pc = dequantize_cache_from_wire(pc)
+                ring_b[key] = {name: _ring_from_payload(pc[name], L, W, T)
+                               for name in ("k", "v")}
+            elif _is_seq(b.mixer):
                 off = int(pc["off"].reshape(-1)[0]) if "off" in pc else 0
                 seq_b[key] = {name: _pageify_seq(pc[name], c - off,
                                                  L - off, T)
@@ -227,8 +259,9 @@ def build_admit_payload(cfg: ModelConfig, payload, layout: PagedLayout,
             else:
                 state_b[key] = dequantize_cache_from_wire(pc)
         seq_g.append(seq_b or None)
+        ring_g.append(ring_b or None)
         state_g.append(state_b or None)
-    return {"seq": seq_g, "state": state_g}
+    return {"seq": seq_g, "ring": ring_g, "state": state_g}
 
 
 # ---------------------------------------------------------------------------
@@ -241,8 +274,9 @@ def build_prior(cfg: ModelConfig, paged_caches, layout: PagedLayout,
     """Chunk-format prior caches covering [0, c) for a suffix prefill.
 
     MLA latent rows are gathered from the shared pool pages ``seq_ids``
-    (c / T of them, ref-pinned by the caller); linear state comes from the
-    snapshot's state leaves.  The result plugs into
+    (c / T of them, ref-pinned by the caller); SWA rows [max(0, c - W), c)
+    are un-rung from the snapshot's ring (rows below are zeros, masked by
+    the window); linear state comes from the snapshot's state leaves.  The result plugs into
     ``Model.prefill_chunk(..., caches=prior)`` with positions offset by c.
 
     GQA blocks gather their K/V the same way, unless ``table_direct``: then
@@ -260,7 +294,11 @@ def build_prior(cfg: ModelConfig, paged_caches, layout: PagedLayout,
             m = b.mixer
             key = f"b{bi}"
             pool = paged_caches["groups"][gi][key]
-            if not _is_seq(m):
+            if is_ring(m):
+                gc[key] = {name: _unring(pages, c, layout.ring_tokens)
+                           for name, pages in
+                           snapshot["ring"][gi][key].items()}
+            elif not _is_seq(m):
                 gc[key] = snapshot["state"][gi][key]
             elif m.kind == "mla":
                 gc[key] = {n: v[:, ids.long()].reshape(v.shape[0], c,
@@ -284,3 +322,11 @@ def build_prior(cfg: ModelConfig, paged_caches, layout: PagedLayout,
                 gc[key] = {n: gather4(v) for n, v in pool.items()}
         groups.append(gc)
     return {"groups": groups}
+
+
+def _unring(pages, c: int, W: int):
+    """Ring pages (R, Hkv, W / T, T, D) at length c -> the chunk-format
+    prior (R, 1, c, Hkv, D), zeros below the window."""
+    R, Hkv, D = pages.shape[0], pages.shape[1], pages.shape[-1]
+    flat = pages.permute(0, 2, 3, 1, 4).reshape(R, W, Hkv, D)
+    return ring_unplace(flat, c, 1)[:, None]

@@ -191,7 +191,7 @@ class CrossDCDeployment:
         has_state = any(not isinstance(b.mixer, AttentionSpec)
                         for g in self.model.cfg.groups for b in g.blocks)
         return HybridPrefixCache(pool, 0, 1, has_full_attn=lay.seq_cols > 0,
-                                 has_linear=has_state)
+                                 has_linear=lay.ring_cols > 0 or has_state)
 
     def _wire_admission(self, name: str):
         cache, dec = self.caches[name], self.decoders[name]

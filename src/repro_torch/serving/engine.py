@@ -377,10 +377,8 @@ class DecodeEngine:
                              "temperature=0 (got spec_k "
                              f"{spec_k}, temperature {temperature})")
         if self.spec_k:
-            # the reference's guard for its SWA ring rollback (a verify
-            # rewrites q = spec_k + 1 ring rows, distinct only while q fits
-            # the ring); SWA blocks are refused at Model construction until
-            # they are ported
+            # the SWA ring rollback restores the q = spec_k + 1 rows a
+            # verify rewrites, distinct only while q fits the ring
             w_min = min([min(b.mixer.window, capacity)
                          for g in model.cfg.groups for b in g.blocks
                          if getattr(b.mixer, "kind", "") == "swa"
@@ -422,6 +420,8 @@ class DecodeEngine:
             # host-side block tables; retired / empty rows name the sink
             self.table_seq = np.full((num_slots, lay.seq_cols), lay.sink,
                                      np.int32)
+            self.table_ring = np.full((num_slots, lay.ring_cols), lay.sink,
+                                      np.int32)
             self._slot_shared: List[List[int]] = [[] for _ in range(num_slots)]
             self._slot_owned: List[List[int]] = [[] for _ in range(num_slots)]
             self._seq_pages: List[List[int]] = [[] for _ in range(num_slots)]
@@ -461,6 +461,8 @@ class DecodeEngine:
                                    device=dev)
         if self.paged:
             self._tbl_in = torch.as_tensor(self.table_seq, device=dev).clone()
+            self._ring_in = torch.as_tensor(self.table_ring,
+                                            device=dev).clone()
         self._step_in = torch.zeros((), dtype=torch.long, device=dev)
         self._out = torch.zeros((self.block_size, num_slots),
                                 dtype=torch.int32, device=dev)
@@ -479,8 +481,10 @@ class DecodeEngine:
             # the block reaches the host in one copy
             self._spec_out = torch.zeros((self.block_size, num_slots, q + 1),
                                          dtype=torch.int32, device=dev)
-            # the O(1) mixer leaves after each verify step, for the commit
-            self._pending = model.verify_buffers(self.caches, q)
+            # the O(1) mixer leaves after each verify step and the SWA ring
+            # rows it overwrites, for the commit
+            self._pending = model.verify_buffers(self.caches, q, num_slots,
+                                                 paged=self.paged)
         self.graphs = bool(graphs)
         self._graph = None
         self._graph_launches = None      # kernel launches of one replay
@@ -510,8 +514,8 @@ class DecodeEngine:
     @property
     def admit_compiles(self) -> int:
         """Distinct paged page-write shapes admitted (pow2 page count x
-        pow2 entry count x wire form), as the reference counts its scatter
-        programs; 0 for the dense layout."""
+        pow2 ring page count x pow2 entry count x wire form), as the
+        reference counts its scatter programs; 0 for the dense layout."""
         return len(self._admit_keys) if self.paged else 0
 
     def free_slots(self) -> List[int]:
@@ -562,24 +566,28 @@ class DecodeEngine:
         return n
 
     # ---------------------------------------------------------- paged admit
-    def _write_pages(self, payload, ids: List[int], slot: int):
+    def _write_pages(self, payload, ids: List[int], ring_ids: List[int],
+                     slot: int):
         """Write one admitted request into the pools in place: its new
-        pages land at ``ids`` in every attention layer's pool
+        pages land at ``ids`` in every append-only attention layer's pool
+        and its ring pages at ``ring_ids`` in every SWA layer's
         (``index_copy_``), its linear state in its slot.  Wire-form pages
         (int8 + scale) dequantize here with the reference's op chain
         (int8 -> float32, times the float32 scale, cast to the pool dtype),
         so the pool bytes equal a dense admission's."""
-        idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        dev = self.device
         for gi, g in enumerate(self.model.cfg.groups):
             pools = self.caches["groups"][gi]
-            seq, state = payload["seq"][gi], payload["state"][gi]
-            for key, pages in (seq or {}).items():
-                for name, pg in pages.items():
-                    buf = pools[key][name]
-                    if paged_mod.is_wire(pg):
-                        pg = pg["q"].float() * pg["scale"].float()
-                    dim = 2 if buf.dim() == 5 else 1   # k/v vs MLA latent
-                    buf.index_copy_(dim, idx, pg.to(buf.dtype))
+            state = payload["state"][gi]
+            for part, at in (("seq", ids), ("ring", ring_ids)):
+                idx = torch.as_tensor(at, dtype=torch.long, device=dev)
+                for key, pages in (payload[part][gi] or {}).items():
+                    for name, pg in pages.items():
+                        buf = pools[key][name]
+                        if paged_mod.is_wire(pg):
+                            pg = pg["q"].float() * pg["scale"].float()
+                        dim = 2 if buf.dim() == 5 else 1   # k/v vs latent
+                        buf.index_copy_(dim, idx, pg.to(buf.dtype))
             for key, leaves in (state or {}).items():
                 for name, new in leaves.items():
                     pools[key][name][:, slot].copy_(new[:, 0])
@@ -592,30 +600,39 @@ class DecodeEngine:
             pin = req.device_pin
             c = pin.cached_len if pin is not None else 0
             need = -(-(L - c) // T) if lay.seq_cols else 0
-            ids = self.pool.allocate(need, PREFIX)
+            ids = self.pool.allocate(need + lay.ring_cols, PREFIX)
             if ids is None:
                 break                    # pool exhausted: request stays ready
-            taken.append((req, first, cache, L, pin, c, ids))
+            taken.append((req, first, cache, L, pin, c, list(ids[:need]),
+                          list(ids[need:])))
         if taken:
             n_ids = sum(len(t[6]) for t in taken)
+            n_ring = sum(len(t[7]) for t in taken)
+            # ring pages dequantize before the write: only int8 seq pages
+            # make another write program
             self._admit_keys.add((next_pow2(n_ids) if n_ids else 0,
+                                  next_pow2(n_ring) if n_ring else 0,
                                   next_pow2(len(taken)),
-                                  all(_has_leaf(t[2], "q") for t in taken)))
-        for req, first, cache, L, pin, c, ids in taken:
+                                  n_ids > 0 and all(_has_leaf(t[2], "q")
+                                                    for t in taken)))
+        for req, first, cache, L, pin, c, ids, ring_ids in taken:
             slot = self._free.popleft()
             payload = paged_mod.build_admit_payload(self.model.cfg, cache,
                                                     lay, c, L)
-            self._write_pages(payload, ids, slot)
+            self._write_pages(payload, ids, ring_ids, slot)
             shared = list(pin.seq_ids) if pin is not None else []
             seq_all = shared + ids
             self.table_seq[slot, :] = lay.sink
             self.table_seq[slot, :len(seq_all)] = seq_all
+            self.table_ring[slot, :] = lay.sink
+            self.table_ring[slot, :len(ring_ids)] = ring_ids
             self._slot_shared[slot] = shared
-            self._slot_owned[slot] = list(ids)
+            self._slot_owned[slot] = ids + ring_ids
             self._seq_pages[slot] = seq_all
             self._start(slot, req, first, L)
             if self.on_admit is not None and not self._warming:
-                snap = {"state": payload["state"]} if L % T == 0 else None
+                snap = ({"ring": payload["ring"], "state": payload["state"]}
+                        if L % T == 0 else None)
                 self.on_admit(req, L, seq_all, snap)
         return len(taken)
 
@@ -665,14 +682,16 @@ class DecodeEngine:
         if self.paged:
             # drop the prefix pins and the slot's own pages: registered
             # prompt pages stay LRU-resident for later hits, decode-tail
-            # pages free at once; the table row names the sink, so the
-            # slot's writes in later blocks land where no live request reads
+            # and ring pages free at once; the table rows name the sink, so
+            # the slot's writes in later blocks land where no live request
+            # reads
             self.pool.release(self._slot_shared[slot])
             self.pool.release(self._slot_owned[slot])
             self._slot_shared[slot] = []
             self._slot_owned[slot] = []
             self._seq_pages[slot] = []
             self.table_seq[slot, :] = self._layout.sink
+            self.table_ring[slot, :] = self._layout.sink
 
     def _tables_kw(self):
         """The page arguments of a decode step of the block: the static
@@ -680,7 +699,7 @@ class DecodeEngine:
         layout)."""
         if not self.paged:
             return {}
-        return dict(tables={"seq": self._tbl_in},
+        return dict(tables={"seq": self._tbl_in, "ring": self._ring_in},
                     page_tokens=self._layout.page_tokens,
                     capacity=self.capacity)
 
@@ -789,6 +808,7 @@ class DecodeEngine:
         self._len_in.copy_(torch.from_numpy(lengths))
         if self.paged:
             self._tbl_in.copy_(torch.from_numpy(self.table_seq))
+            self._ring_in.copy_(torch.from_numpy(self.table_ring))
         if self.temperature > 0.0:
             self._step_in.fill_(self._steps)
         if self.spec_k:

@@ -13,7 +13,8 @@ params carried over):
     (``warmup_admission``, ``warmup_block``) leaves no active slot, no
     output, no hook call and a conserved pool, and later tokens unchanged;
   * after the same warm-up and traffic (smoke ``mistral-nemo-12b``, whose
-    reference programs compile in a third of kimi's time), ``compiles`` /
+    reference programs compile in a third of kimi's time, and smoke
+    ``h2o-danube-1.8b``, whose pages are rings), ``compiles`` /
     ``admit_compiles`` count the reference's shapes and
     ``RegionScheduler.stats()`` has the reference's keys and counts.
 
@@ -26,6 +27,7 @@ graph is held against the eager block on the card
 """
 import functools
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -43,7 +45,7 @@ from repro_torch.serving.api import Request
 
 torch.set_num_threads(1)
 SLOTS, CAPACITY, BLOCK, MAX_BUCKET, PAGE = 4, 192, 4, 64, 16
-MLA, GQA = "kimi-linear-1t", "mistral-nemo-12b"
+MLA, GQA, SWA = "kimi-linear-1t", "mistral-nemo-12b", "h2o-danube-1.8b"
 
 
 @functools.lru_cache(maxsize=None)
@@ -276,9 +278,24 @@ def test_compiles_and_stats_match_reference():
     equal the reference's (its jit programs too), traffic inside the warmed
     shapes adds none, and ``stats()`` has the reference's keys, counts and
     tokens; the wall-clock shares are in range."""
+    _compiles_and_stats(GQA)
+
+
+def test_compiles_and_stats_match_reference_on_rings():
+    """The same on smoke ``h2o-danube-1.8b``, whose paged admission writes
+    ring pages alone (one ring table of 64 / 16 pages a slot)."""
+    _compiles_and_stats(SWA)
+
+
+def _compiles_and_stats(arch):
+    # the reference's ``compiles`` sums jit cache sizes, and its chunk
+    # carry (``PrefillEngine._carry_last_impl``, a staticmethod) shares one
+    # cache across every engine in the process: an earlier test's chunked
+    # prefill at another batch leaves an entry this run does not make
+    jax.clear_caches()
     jwarm, jafter, jstats, jcompiles, jtoks = _warm_and_serve(
-        _side(False, GQA))
-    warm, after, stats, compiles, toks = _warm_and_serve(_side(True, GQA))
+        _side(False, arch))
+    warm, after, stats, compiles, toks = _warm_and_serve(_side(True, arch))
     assert warm == jwarm and after == jafter == warm
     assert compiles == jcompiles == warm[0]
     assert toks == jtoks

@@ -1,9 +1,10 @@
 """The bf16 decode core's launch plan, shape rule and cache addressing, on
 the CPU: the pure functions the kernels' wrappers run before a launch
 (``repro_torch.kernels.decode_attn``), the split of the live keys into
-balanced runs that the kernels derive on the device (mirrored by
-``tile_runs`` / ``row_workers``), and a split-then-combine decode built on
-that split against the reference's oracle.  The kernels themselves run on
+runs that the kernels derive on the device (mirrored by ``tile_runs`` /
+``row_runs`` / ``row_slots``), which cuts each row by its own length
+alone, and a split-then-combine decode built on that split against the
+reference's oracle.  The kernels themselves run on
 the card (``tests/test_torch_gpu.py``).
 
 Tolerance: float32 2e-5 (sums in other orders), as
@@ -17,9 +18,9 @@ import jax.numpy as jnp
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attn import (TC_GROUP, cache_rows,
-                                             require_bf16_decode, row_workers,
-                                             split_plan, stream_shape,
-                                             tile_runs)
+                                             require_bf16_decode, row_runs,
+                                             row_slots, split_plan,
+                                             stream_shape, tile_runs)
 
 torch.set_num_threads(1)
 
@@ -67,11 +68,13 @@ def test_split_plan_picks_core(B, Hq, Hkv, Dk, Dv, S, core, heads, tile):
         C, XC = stream_shape(Dk, Dv)
         assert C * XC * 8 >= max(Dk, Dv) and plan.heads * XC <= 8
         assert plan.workers % 4 == 0
-    # never more workers than tiles the rows could hold (rounded to a block)
-    assert plan.workers <= max(4, B * -(-S // tile) + 3)
+    # never more workers than runs the rows could hold (rounded to a block)
+    assert plan.workers <= max(4, B * plan.runs + 3)
+    assert 1 <= plan.runs <= -(-(-(-S // tile)) // plan.rmin)
+    assert plan.rmin * tile >= 64
     acc, ml = plan.scratch(B, Hq, Dv, "cpu")
-    assert acc.shape == (plan.workers + B - 1, Hq, Dv)
-    assert ml.shape == (plan.workers + B - 1, Hq, 2)
+    assert acc.shape == (B * plan.runs, Hq, Dv)
+    assert ml.shape == (B * plan.runs, Hq, 2)
 
 
 def test_split_plan_float32_keeps_the_simt_plan():
@@ -85,78 +88,149 @@ def test_split_plan_float32_keeps_the_simt_plan():
 
 
 _RUN_CASES = [
-    # lengths, S, window, tile, workers
-    ((16384, 12001, 9000, 5601, 3800, 1501, 701, 101), 16384, 0, 32, 132),
-    ((4000,) * 8, 16384, 0, 8, 200),
-    ((4000,) * 8, 16384, 0, 16, 52),
-    ((0, 1, 37, 0, 64, 65), 80, 0, 16, 12),         # empty rows, partial tiles
-    ((0, 1, 37, 0, 64, 65), 80, 20, 16, 12),        # window
-    ((300, 5, 300), 300, 50, 8, 64),                # more workers than tiles
-    ((100, 40), 64, 0, 16, 3),                      # lengths past S
-    ((7,), 10, 3, 1, 5),
+    # lengths, S, window, tile, workers, runs, rmin
+    ((16384, 12001, 9000, 5601, 3800, 1501, 701, 101), 16384, 0, 32, 132,
+     66, 2),
+    ((4000,) * 8, 16384, 0, 8, 200, 100, 8),
+    ((4000,) * 8, 16384, 0, 16, 52, 26, 4),
+    ((0, 1, 37, 0, 64, 65), 80, 0, 16, 12, 5, 1),   # empty rows, partial tiles
+    ((0, 1, 37, 0, 64, 65), 80, 20, 16, 12, 2, 1),  # window
+    ((300, 5, 300), 300, 50, 8, 64, 7, 1),          # more workers than runs
+    ((100, 40), 64, 0, 16, 3, 4, 1),                # lengths past S
+    ((7,), 10, 3, 1, 5, 3, 1),
 ]
 
 
-@pytest.mark.parametrize("lengths,S,window,tile,workers", _RUN_CASES)
+# the cases' ids as they read before runs and rmin were added
+_RUN_IDS = [f"lengths{i}-{c[1]}-{c[2]}-{c[3]}-{c[4]}"
+            for i, c in enumerate(_RUN_CASES)]
+
+
+def _live(L, S, window):
+    lo = max(0, L - window) if window > 0 else 0
+    return lo, min(L, S)
+
+
+@pytest.mark.parametrize("lengths,S,window,tile,workers,runs,rmin",
+                         _RUN_CASES, ids=_RUN_IDS)
 def test_tile_runs_split_every_live_key_once(lengths, S, window, tile,
-                                             workers):
+                                             workers, runs, rmin):
     """Every live key falls in exactly one run; runs are whole tiles of
-    their row; the workers' loads are within one tile of each other; keys
-    outside the window or past the length are never in a run; the partial
-    slots (worker + row) are distinct and fit the scratch."""
-    runs = tile_runs(lengths, S, window, tile, workers)
+    their row, at most ``runs`` a row and none shorter than ``rmin`` tiles
+    unless the row is; a worker's load is its even share of the tiles
+    plus at most one run; keys outside the window or past the length are
+    never in a run; the partial slots (row * runs + run) are distinct and
+    fit the scratch."""
+    split = tile_runs(lengths, S, window, tile, workers, runs, rmin)
     seen = {b: np.zeros(S, np.int64) for b in range(len(lengths))}
-    loads, slots = [], []
-    for i, segs in enumerate(runs):
+    loads, slots, biggest = [], [], 0
+    per_row = {b: 0 for b in range(len(lengths))}
+    for segs in split:
         n_tiles = 0
-        for b, k0, k1 in segs:
-            L = lengths[b]
-            lo = max(0, L - window) if window > 0 else 0
-            assert lo <= k0 < k1 <= min(L, S)
+        for b, k0, k1, slot in segs:
+            lo, n = _live(lengths[b], S, window)
+            assert lo <= k0 < k1 <= n
             assert (k0 - lo) % tile == 0
-            assert (k1 - lo) % tile == 0 or k1 == min(L, S)
+            assert (k1 - lo) % tile == 0 or k1 == n
             seen[b][k0:k1] += 1
-            n_tiles += -(-(k1 - k0) // tile)
-            slots.append(i + b)
+            t = -(-(k1 - k0) // tile)
+            n_tiles += t
+            biggest = max(biggest, t)
+            slots.append(slot)
+            per_row[b] += 1
+            assert b * runs <= slot < (b + 1) * runs
         loads.append(n_tiles)
     for b, L in enumerate(lengths):
-        lo = max(0, L - window) if window > 0 else 0
+        lo, n = _live(L, S, window)
         want = np.zeros(S, np.int64)
-        want[lo:min(L, S)] = 1
+        want[lo:n] = 1
         np.testing.assert_array_equal(seen[b], want)
-    assert max(loads) - min(loads) <= 1
+        count = -(-(n - lo) // tile) if n > lo else 0
+        assert per_row[b] == min(runs, -(-count // rmin))
+    total = sum(loads)
+    assert max(loads) <= -(-total // workers) + biggest - 1
     assert len(set(slots)) == len(slots)
-    assert all(0 <= s < workers + len(lengths) - 1 for s in slots)
 
 
-@pytest.mark.parametrize("lengths,S,window,tile,workers", _RUN_CASES)
-def test_row_workers_find_each_rows_runs(lengths, S, window, tile, workers):
-    """The combine kernel's range of a row's workers holds exactly the
-    workers whose runs meet the row."""
-    runs = tile_runs(lengths, S, window, tile, workers)
-    counts = []
-    for L in lengths:
-        lo = max(0, L - window) if window > 0 else 0
-        n = min(L, S)
-        counts.append(-(-(n - lo) // tile) if n > lo else 0)
-    total, first = sum(counts), 0
-    for b, count in enumerate(counts):
-        want = {i for i, segs in enumerate(runs) if any(r == b for r, *_ in segs)}
-        assert set(row_workers(first, count, total, workers)) == want
-        first += count
+@pytest.mark.parametrize("lengths,S,window,tile,workers,runs,rmin",
+                         _RUN_CASES, ids=_RUN_IDS)
+def test_row_workers_find_each_rows_runs(lengths, S, window, tile, workers,
+                                       runs, rmin):
+    """The combine kernel's slots of a row, in its merge order, are
+    exactly the slots the row's runs write, in run order."""
+    split = tile_runs(lengths, S, window, tile, workers, runs, rmin)
+    for b, L in enumerate(lengths):
+        written = [slot for segs in split for r, _, _, slot in segs
+                   if r == b]
+        assert [b * runs + j for j in row_slots(L, S, window, tile, runs,
+                                                rmin)] == written
 
 
-@pytest.mark.parametrize("Hq,Hkv,Dk,Dv,window,tile,workers", [
-    (8, 1, 48, 32, 0, 16, 7),       # MQA, Dk != Dv
-    (8, 2, 32, 32, 20, 8, 11),      # GQA with a window
-    (4, 4, 16, 16, 0, 4, 30),       # MHA, more workers than tiles
+def _row_view(split, b):
+    """Row b's runs as the kernels see them: (first key, end key, slot) in
+    slot order."""
+    return sorted((k0, k1, slot) for segs in split for r, k0, k1, slot in segs
+                  if r == b)
+
+
+@pytest.mark.parametrize("lengths,S,window,tile,workers,runs,rmin",
+                         _RUN_CASES, ids=_RUN_IDS)
+@pytest.mark.parametrize("plan_from", ["case", "stream", "wgmma"])
+def test_a_rows_split_ignores_the_other_rows(lengths, S, window, tile,
+                                             workers, runs, rmin, plan_from):
+    """Batch invariance of the bf16 core's split: a row's runs (key
+    bounds and partial slots) and the combine's merge order for it are the
+    same whatever length any other row has, from an empty row to one past
+    S, dense and windowed, on the case's plan and on the stream (G 4,
+    Dk 80) and tensor-core (G 48, Dk 128) plans at these shapes.  The
+    rows' lengths move one at a time; the worker that runs a row's run
+    may change, its bits may not."""
+    if plan_from != "case":
+        Hq, Hkv, D = (32, 8, 80) if plan_from == "stream" else (48, 1, 128)
+        plan = split_plan(len(lengths), Hq, Hkv, D, D, S, torch.bfloat16,
+                          132, window)
+        assert plan.core == plan_from
+        tile, workers, runs, rmin = (plan.tile, plan.workers, plan.runs,
+                                     plan.rmin)
+    base = tile_runs(lengths, S, window, tile, workers, runs, rmin)
+    for other in range(len(lengths)):
+        for L in sorted({0, 1, tile + 1, S // 3, S, S + 7}):
+            moved = list(lengths)
+            moved[other] = L
+            split = tile_runs(moved, S, window, tile, workers, runs, rmin)
+            for b, Lb in enumerate(lengths):
+                if b == other:
+                    continue
+                assert _row_view(split, b) == _row_view(base, b)
+                assert (list(row_slots(Lb, S, window, tile, runs, rmin))
+                        == [slot - b * runs for _, _, slot
+                            in _row_view(split, b)])
+
+
+@pytest.mark.parametrize("count,runs,rmin,want", [
+    (0, 8, 1, []),
+    (5, 8, 1, [(0, 1), (1, 2), (2, 3), (3, 4), (4, 5)]),
+    (10, 3, 1, [(0, 4), (4, 7), (7, 10)]),
+    (10, 8, 4, [(0, 4), (4, 7), (7, 10)]),
+    (3, 8, 4, [(0, 3)]),
 ])
+def test_row_runs_cut_a_row_evenly(count, runs, rmin, want):
+    """A row's tiles cut into min(runs, ceil(count / rmin)) runs, the
+    first count % n one tile longer."""
+    assert row_runs(count, runs, rmin) == want
+
+
+@pytest.mark.parametrize("Hq,Hkv,Dk,Dv,window,tile,workers,runs,rmin", [
+    (8, 1, 48, 32, 0, 16, 7, 3, 1),      # MQA, Dk != Dv
+    (8, 2, 32, 32, 20, 8, 11, 2, 1),     # GQA with a window
+    (4, 4, 16, 16, 0, 4, 30, 5, 2),      # MHA, more workers than runs
+], ids=["8-1-48-32-0-16-7", "8-2-32-32-20-8-11", "4-4-16-16-0-4-30"])
 def test_split_combine_matches_reference(Hq, Hkv, Dk, Dv, window, tile,
-                                         workers):
+                                         workers, runs, rmin):
     """The bf16 core's arithmetic on its split, in float64 numpy: each
-    worker's (max, sum, unnormalised accumulator) per segment, merged per
-    row over ``row_workers``, equals the reference's decode oracle; a row
-    with no live key gives 0."""
+    run's (max, sum, unnormalised accumulator) in its slot, merged per row
+    over ``row_slots``, equals the reference's decode oracle; a row with no
+    live key gives 0."""
     r = np.random.default_rng(7)
     B, S = 5, 60
     lengths = np.array([60, 0, 1, 33, 17], np.int32)
@@ -165,30 +239,24 @@ def test_split_combine_matches_reference(Hq, Hkv, Dk, Dv, window, tile,
     v = r.standard_normal((B, Hkv, S, Dv)).astype(np.float32)
     scale = Dk ** -0.5
     G = Hq // Hkv
-    runs = tile_runs(lengths, S, window, tile, workers)
+    split = tile_runs(lengths, S, window, tile, workers, runs, rmin)
     part = {}
-    for i, segs in enumerate(runs):
-        for b, k0, k1 in segs:
+    for segs in split:
+        for b, k0, k1, slot in segs:
             for h in range(Hq):
                 s = k[b, h // G, k0:k1] @ q[b, h].astype(np.float64) * scale
                 m = s.max()
                 e = np.exp(s - m)
-                part[(i + b, h)] = (m, e.sum(), e @ v[b, h // G, k0:k1])
-    counts = []
-    for L in lengths:
-        lo = max(0, L - window) if window > 0 else 0
-        counts.append(-(-(min(L, S) - lo) // tile) if min(L, S) > lo else 0)
-    total, first = sum(counts), 0
+                part[(slot, h)] = (m, e.sum(), e @ v[b, h // G, k0:k1])
     out = np.zeros((B, Hq, Dv))
-    for b, count in enumerate(counts):
+    for b, L in enumerate(lengths):
         for h in range(Hq):
-            got = [part[(i + b, h)] for i in row_workers(first, count, total,
-                                                         workers)]
+            got = [part[(b * runs + j, h)]
+                   for j in row_slots(L, S, window, tile, runs, rmin)]
             if got:
                 mt = max(m for m, _, _ in got)
                 den = sum(np.exp(m - mt) * l for m, l, _ in got)
                 out[b, h] = sum(np.exp(m - mt) * a for m, _, a in got) / den
-        first += count
     oracle = jref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
                                        jnp.asarray(v), jnp.asarray(lengths),
                                        window=window)

@@ -781,7 +781,7 @@ def test_paged_decode_matches_plain(cuda, dtype, B, Hq, Hkv, T, N, Dk, Dv,
 # tensor cores), mistral-nemo's GQA and zamba2's MHA (the bf16 stream)
 _BF16_DECODE_GROUPS = [(64, 1, 536, 472), (32, 8, 128, 128), (32, 32, 64, 64)]
 # ragged lengths: empty rows, one key, partly live last tiles, rows long
-# enough that the workers' runs cross row boundaries
+# enough that a worker takes runs of two rows
 _BF16_DECODE_LENGTHS = (0, 1, 37, 4096, 1029, 0, 3000, 2049)
 
 
@@ -833,13 +833,151 @@ def test_decode_bf16_core_matches_plain(cuda, Hq, Hkv, Dk, Dv, window,
                                           window=window)
     plan = split_plan(B, Hq, Hkv, Dk, Dv, S, bf, sm_count(cuda), window)
     assert plan.core == ("wgmma" if Hq // Hkv >= 16 else "stream")
-    runs = tile_runs(lengths, S, window, plan.tile, plan.workers)
+    runs = tile_runs(lengths, S, window, plan.tile, plan.workers, plan.runs,
+                     plan.rmin)
     if window == 0:
-        assert any(len(segs) > 1 for segs in runs), "no run crosses a row"
+        assert any(len({r for r, *_ in segs}) > 1 for segs in runs), \
+            "no worker takes the runs of two rows"
     assert torch.isfinite(got.float()).all()
     assert not got[lens == 0].any()
     torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
                                rtol=2e-2)
+
+
+# every group size the bf16 core serves: MLA (G 64, tensor cores), granite
+# MQA (G 48: one 64-row tile, 16 rows of padding), qwen2.5 GQA (G 8: the
+# stream's 8-head instance), mistral-nemo and h2o-danube GQA (G 4, head
+# dims 128 and 80), zamba2 MHA (G 1)
+_INVARIANCE_GROUPS = [(64, 1, 536, 472), (48, 1, 128, 128),
+                      (16, 2, 128, 128), (32, 8, 128, 128), (32, 8, 80, 80),
+                      (32, 32, 64, 64)]
+
+
+@pytest.mark.parametrize("Hq,Hkv,Dk,Dv", _INVARIANCE_GROUPS)
+@pytest.mark.parametrize("window", [0, 45])
+@pytest.mark.parametrize("layout", ["dense", "paged16"])
+def test_decode_bf16_rows_are_batch_invariant(cuda, Hq, Hkv, Dk, Dv, window,
+                                              layout):
+    """A row's bf16 decode output is bit for bit the same whatever its
+    batch-mates' lengths: row 1's length moves (empty, one key, a partial
+    tile, across the others, full) and every other row keeps its bits,
+    dense and paged, at every group size the core serves (the split cuts
+    each row by its own length, ``decode_attn.row_runs``).  Each output
+    also matches the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    bf = torch.bfloat16
+    base = list(_BF16_DECODE_LENGTHS)
+    B, S, T = len(base), 4096, 16
+    q = _randn(g, (B, Hq, Dk), bf, cuda)
+    if layout == "dense":
+        k = _randn(g, (B, Hkv, S, Dk), bf, cuda)
+        v = _randn(g, (B, Hkv, S, Dv), bf, cuda)
+
+        def run(lens):
+            return decode_attention(q, k, v, lens, window=window)
+
+        def plain(lens):
+            return decode_attention_ref(q, k, v, lens, window=window)
+    else:
+        N = S // T
+        kp = _randn(g, (Hkv, B * N + 1, T, Dk), bf, cuda)
+        vp = _randn(g, (Hkv, B * N + 1, T, Dv), bf, cuda)
+        tables = torch.randperm(B * N, generator=torch.Generator().manual_seed(
+            4))[:B * N].reshape(B, N).to(torch.int32).to(cuda)
+
+        def run(lens):
+            return paged_decode_attention(q, kp, vp, tables, lens,
+                                          window=window)
+
+        def plain(lens):
+            return paged_decode_attention_ref(q, kp, vp, tables, lens,
+                                              window=window)
+
+    def lens_of(x):
+        return torch.tensor(x, dtype=torch.int32, device=cuda)
+
+    want = run(lens_of(base))
+    torch.testing.assert_close(want.float(), plain(lens_of(base)).float(),
+                               atol=2e-3, rtol=2e-2)
+    others = [b for b in range(B) if b != 1]
+    for L in (0, 1, 17, 1029, 2500, S):
+        lens = list(base)
+        lens[1] = L
+        got = run(lens_of(lens))
+        torch.cuda.synchronize()
+        moved = [b for b in others if not torch.equal(got[b], want[b])]
+        assert not moved, f"row 1 at {L} moved rows {moved}"
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged16"])
+@pytest.mark.parametrize("L", [100, 4095, 4096, 9000, 12001])
+def test_decode_over_an_swa_ring_matches_plain(cuda, layout, L):
+    """h2o-danube's decode (GQA 32/8, head dim 80, window 4096) over its
+    ring: a (B, 4096) ring buffer, or the slot's ring table of 4096 / 16
+    pages, holding the last min(L + 1, 4096) keys at slot pos % 4096; the
+    model calls the kernel with ``min(L + 1, 4096)`` keys and no window.
+    The kernel equals the plain version in bf16 and float32, and the ring
+    (whatever order its slots hold) equals the plain decode over the last
+    window of the keys in sequence order (softmax is order-free)."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    W, T, Hq, Hkv, D = 4096, 16, 32, 8, 80
+    B = 3
+    n = min(L + 1, W)
+    for dtype in (torch.float32, torch.bfloat16):
+        seq_k = _randn(g, (B, Hkv, L + 1, D), dtype, cuda)
+        seq_v = _randn(g, (B, Hkv, L + 1, D), dtype, cuda)
+        q = _randn(g, (B, Hq, D), dtype, cuda)
+        pos = torch.arange(L + 1 - n, L + 1, device=cuda)
+        ring_k = torch.zeros((B, Hkv, W, D), dtype=dtype, device=cuda)
+        ring_v = torch.zeros_like(ring_k)
+        ring_k[:, :, pos % W] = seq_k[:, :, pos]
+        ring_v[:, :, pos % W] = seq_v[:, :, pos]
+        lens = torch.full((B,), n, dtype=torch.int32, device=cuda)
+        if layout == "dense":
+            got = decode_attention(q, ring_k, ring_v, lens)
+            want = decode_attention_ref(q, ring_k, ring_v, lens)
+        else:
+            N = W // T
+            ids = torch.randperm(B * N, generator=torch.Generator(
+            ).manual_seed(L)).reshape(B, N).to(torch.int32).to(cuda)
+            kp = torch.zeros((Hkv, B * N + 1, T, D), dtype=dtype, device=cuda)
+            vp = torch.zeros_like(kp)
+            kp[:, ids.long()] = ring_k.reshape(B, Hkv, N, T, D).transpose(0, 1)
+            vp[:, ids.long()] = ring_v.reshape(B, Hkv, N, T, D).transpose(0, 1)
+            got = paged_decode_attention(q, kp, vp, ids, lens)
+            want = paged_decode_attention_ref(q, kp, vp, ids, lens)
+        torch.cuda.synchronize()
+        window_order = decode_attention_ref(
+            q, seq_k[:, :, L + 1 - n:].contiguous(),
+            seq_v[:, :, L + 1 - n:].contiguous(), lens)
+        atol, rtol = TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+        torch.testing.assert_close(got.float(), window_order.float(),
+                                   atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk,q_offset", [(600, 600, 0), (512, 5120, 4608),
+                                            (1000, 9000, 8000)])
+def test_flash_swa_at_head_dim_80_matches_plain(cuda, dtype, Sq, Sk,
+                                                q_offset):
+    """h2o-danube's prefill attention (GQA 32/8, head dim 80, window 4096),
+    a whole prompt and chunks after 4608 and 8000 tokens of prior (the
+    chunk path keeps the whole prior and masks it by the window), against
+    the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    q = _randn(g, (1, 32, Sq, 80), dtype, cuda)
+    k = _randn(g, (1, 8, Sk, 80), dtype, cuda)
+    v = _randn(g, (1, 8, Sk, 80), dtype, cuda)
+    got = flash_attention(q, k, v, causal=True, q_offset=q_offset,
+                          window=4096)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, causal=True, q_offset=q_offset,
+                               window=4096)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1064,7 +1202,7 @@ def _wave(cfg, peng, lens, seed, rid0):
 
 @pytest.mark.parametrize("paged", [False, True])
 @pytest.mark.parametrize("arch", ["kimi-linear-1t", "mistral-nemo-12b",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "h2o-danube-1.8b"])
 def test_replayed_block_matches_eager(cuda, arch, paged):
     """The captured block, replayed, emits the eager block's tokens, two
     waves of admissions with budgets ending mid-block; one capture
@@ -1175,7 +1313,7 @@ def test_calibration_sweep_launches_the_flash_kernel(cuda, tmp_path):
 
 @pytest.mark.parametrize("paged", [False, True])
 @pytest.mark.parametrize("arch", ["kimi-linear-1t", "mistral-nemo-12b",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "h2o-danube-1.8b"])
 def test_spec_replay_matches_eager(cuda, arch, paged):
     """The speculative block (``spec_k=2``, one-token n-grams), replayed,
     emits the eager block's tokens over two waves of admissions, with one

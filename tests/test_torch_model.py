@@ -3,7 +3,10 @@
 caches, chunked == full prefill, decode after prefill, and a variant with
 the full-width model's low-rank MLA query path.  The fixture's ``zamba2``
 case runs the same checks on smoke ``zamba2-1.2b`` (Mamba2 + a shared
-attention block; ``tests/test_torch_hybrid.py`` runs its chunks).
+attention block; ``tests/test_torch_hybrid.py`` runs its chunks), and
+the ``qwen2.5`` (GQA 16/2, QKV bias, tied embeddings), ``granite`` (MQA,
+gelu) and ``danube`` (sliding window, ``tests/test_torch_swa.py``) cases
+on those smoke models.
 
 Tolerances: logits 1e-4 abs / 1e-4 rel; caches 3e-4 abs / 1e-3 rel (two
 stacked repeats of KDA + MLA + MoE blocks, float32 sums in other orders).
@@ -37,8 +40,10 @@ def _setup(q_rank, arch="kimi-linear-1t"):
 
 
 @pytest.fixture(params=[(0, "kimi-linear-1t"), (24, "kimi-linear-1t"),
-                        (0, "zamba2-1.2b")],
-                ids=["q_full", "q_rank", "zamba2"])
+                        (0, "zamba2-1.2b"), (0, "qwen2.5-3b"),
+                        (0, "granite-20b"), (0, "h2o-danube-1.8b")],
+                ids=["q_full", "q_rank", "zamba2", "qwen2.5", "granite",
+                     "danube"])
 def setup(request):
     return _setup(*request.param)
 

@@ -1,7 +1,8 @@
 """The port's paged KV against the reference's, on the CPU: the plain paged
 kernels, paged decode steps on smoke ``mistral-nemo-12b`` (GQA), smoke
-``kimi-linear-1t`` (MLA) and smoke ``zamba2-1.2b`` (Mamba2 + a shared MHA
-block), paged admission and the page pool.
+``kimi-linear-1t`` (MLA), smoke ``zamba2-1.2b`` (Mamba2 + a shared MHA
+block) and smoke ``h2o-danube-1.8b`` (sliding-window rings through ring
+tables), paged admission and the page pool.
 
 Inputs are made with numpy from a seed and given to both frameworks; the
 reference's params are carried over with ``from_numpy_tree``.  The
@@ -48,6 +49,7 @@ KERNEL_TOL = dict(atol=2e-5, rtol=2e-5)
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 CACHE_TOL = dict(atol=3e-4, rtol=1e-3)
 GQA, MLA, HYBRID = "mistral-nemo-12b", "kimi-linear-1t", "zamba2-1.2b"
+SWA = "h2o-danube-1.8b"
 PAGE = 16
 
 
@@ -165,11 +167,12 @@ def test_cpu_tensors_take_the_plain_paged_versions():
         paged_prefill_attention(qc, pool, pool, tables, ks, ks)
 
 
-@pytest.mark.parametrize("arch", [GQA, MLA, HYBRID])
+@pytest.mark.parametrize("arch", [GQA, MLA, HYBRID, SWA])
 def test_paged_decode_steps_match_reference(arch):
     """``decode_step`` over random page pools through random tables (the
-    last slot inactive on the sink page, one slot past its table): logits,
-    and the pools the steps wrote, against the reference's."""
+    last slot inactive on the sink page, one slot past its table; SWA: its
+    ring table, the slot wrapping its ring): logits, and the pools the
+    steps wrote, against the reference's."""
     jcfg, tcfg, jparams, tparams = _setup(arch)
     capacity, slots, pages = 64, 3, 12
     lay = jpaged.paged_layout(jcfg, capacity, PAGE, pages)
@@ -183,6 +186,8 @@ def test_paged_decode_steps_match_reference(arch):
     tables[1, :4] = [0, 7, 3, 11]
     lengths = np.array([40, 63, 0], np.int32)     # slot 1 steps off its table
     tokens = r.integers(0, tcfg.vocab_size, slots).astype(np.int32)
+    kind = "ring" if lay.ring_cols else "seq"
+    assert tables.shape[1] == max(lay.seq_cols, lay.ring_cols)
     jcache = {"groups": [{k: {n: jnp.asarray(v) for n, v in b.items()}
                           for k, b in g.items()} for g in pools["groups"]]}
     tcache = to_torch(pools)
@@ -192,9 +197,9 @@ def test_paged_decode_steps_match_reference(arch):
     jlen, tlen = jnp.asarray(lengths), torch.from_numpy(lengths)
     for _ in range(2):
         jl, jcache = jm.decode_step(jparams, jt, jcache, jlen,
-                                    tables={"seq": jnp.asarray(tables)}, **kw)
+                                    tables={kind: jnp.asarray(tables)}, **kw)
         tl, tcache = tm.decode_step(tparams, tt, tcache, tlen,
-                                    tables={"seq": torch.from_numpy(tables)},
+                                    tables={kind: torch.from_numpy(tables)},
                                     **kw)
         np.testing.assert_allclose(tl[:2].numpy(), np.asarray(jl)[:2],
                                    **LOGIT_TOL)
@@ -227,7 +232,7 @@ def _prefilled(arch, L, seed):
     return toks, int(first[0]), jeng.trim_request_cache(caches, 0, L)
 
 
-@pytest.mark.parametrize("arch", [GQA, MLA, HYBRID])
+@pytest.mark.parametrize("arch", [GQA, MLA, HYBRID, SWA])
 def test_wire_admitted_pool_byte_identical(arch):
     """An int8 wire payload of the reference's, admitted by the port's
     paged engine (dequantized inside the page write), leaves pools
@@ -249,6 +254,7 @@ def test_wire_admitted_pool_byte_identical(arch):
                          len(toks))])
         decs.append(dec)
     assert decs[0].table_seq.tolist() == jdec.table_seq.tolist()
+    assert decs[0].table_ring.tolist() == jdec.table_ring.tolist()
     assert_trees_identical(jdec.caches, decs[0].caches)
     assert_trees_identical(jdec.caches, decs[1].caches)
 

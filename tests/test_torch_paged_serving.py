@@ -13,7 +13,9 @@ the reference's params carried over (float32 smoke models):
     without int8 wire admission.
 
 Mirrors ``tests/test_paged_kv.py`` of the reference, on smoke
-``mistral-nemo-12b`` (GQA); ``tests/test_torch_paged_mla.py`` runs the
+``mistral-nemo-12b`` (GQA); ``tests/test_torch_swa_serving.py`` runs the
+first two checks and the deployment on smoke ``h2o-danube-1.8b``
+(sliding-window rings, whose resume takes the ring snapshot); ``tests/test_torch_paged_mla.py`` runs the
 first two checks on smoke ``kimi-linear-1t`` (MLA + KDA), and
 ``tests/test_torch_hybrid.py`` the first two and the deployment on smoke
 ``zamba2-1.2b`` (Mamba2 + a shared MHA block).  Tokens are
@@ -43,7 +45,7 @@ from repro_torch.serving.api import PagePin, Request
 
 torch.set_num_threads(1)
 SLOTS, CAPACITY, BLOCK, MAX_BUCKET, PAGE = 4, 384, 8, 64, 16
-GQA, MLA = "mistral-nemo-12b", "kimi-linear-1t"
+GQA, MLA, SWA = "mistral-nemo-12b", "kimi-linear-1t", "h2o-danube-1.8b"
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,7 +118,7 @@ def _resume(side, arch, prefix, tokens_b):
     """Request A (the prefix) runs and retires with its pages registered;
     request B resumes from them.  Returns (B's tokens, cached length,
     tokens prefilled for B, pool)."""
-    flags = dict(has_full_attn=True,
+    flags = dict(has_full_attn=arch != SWA,   # danube: rings alone
                  has_linear=arch != GQA)        # kimi, zamba2: linear state
     pool = side[5](SLOTS * CAPACITY // PAGE, PAGE, 1)
     cache = side[6](pool, 0, 1, **flags)
@@ -137,9 +139,9 @@ def _resume(side, arch, prefix, tokens_b):
 def test_prefix_hit_prefills_only_the_suffix(arch):
     """B shares a page-aligned 64-token prefix with a retired A and resumes
     from A's pool pages (GQA: through the paged-prefill path; MLA: gathered
-    latents + the exact-length state snapshot): only the suffix is
-    prefilled, and B's tokens equal the reference's resume and the port's
-    fresh dense run."""
+    latents + the exact-length state snapshot; SWA: the window un-rung
+    from the ring snapshot): only the suffix is prefilled, and B's tokens
+    equal the reference's resume and the port's fresh dense run."""
     prefix, suffix = _prompts([64, 41], seed=3)
     tokens_b = np.concatenate([prefix, suffix])
     want, jc, jcost, _ = _resume(_reference(arch), arch, prefix, tokens_b)
@@ -215,6 +217,10 @@ def _deploy(dep, req_cls, batches):
 
 @pytest.mark.parametrize("wire", [False, True], ids=["raw", "wire"])
 def test_paged_deployment_matches_reference(wire, arch=GQA):
+    _deployment_case(wire, arch)
+
+
+def _deployment_case(wire, arch):
     """A first turn, then its extension: ``_route`` pins the registered
     prefix and the home region prefills only the suffix.  Per request the
     route, cached tokens, pin, wire bytes and tokens equal the reference's;

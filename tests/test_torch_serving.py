@@ -6,11 +6,14 @@ smoke ``kimi-linear-1t`` (float32, the reference's params carried over):
     the reference's greedy tokens;
   * ``PrefillEngine`` / ``ChunkedPrefill`` / ``DecodeEngine`` under the
     ``RegionScheduler`` emit the reference's greedy tokens, truncation
-    flags included.
+    flags included; and so on smoke ``qwen2.5-3b`` (GQA 16/2, QKV bias,
+    tied embeddings) and ``granite-20b`` (MQA, gelu), whose wire pytrees
+    are byte-identical too.
 """
 import functools
 
 import numpy as np
+import pytest
 import torch
 
 from _torch_parity import (assert_trees_identical, configs, shared_params,
@@ -36,8 +39,8 @@ SLOTS, CAPACITY, BLOCK, MAX_BUCKET = 4, 160, 4, 64
 
 
 @functools.lru_cache(maxsize=None)
-def _setup():
-    jcfg, tcfg = configs()
+def _setup(arch="kimi-linear-1t"):
+    jcfg, tcfg = configs(arch=arch)
     jparams, tparams = shared_params(jcfg)
     return jcfg, tcfg, jparams, tparams
 
@@ -106,7 +109,25 @@ def test_scheduler_tokens_match_reference():
     """Bucketed batches, a chunked long prompt (three 64-token chunks),
     more requests than slots and one stream stopped by the capacity wall:
     every token and truncation flag equals the reference's."""
-    jcfg, tcfg, jparams, tparams = _setup()
+    _scheduler_case("kimi-linear-1t")
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "granite-20b"])
+def test_dense_gqa_archs_match_reference(arch):
+    """The scheduler case and the wire pytree on the two registered dense
+    GQA / MQA architectures."""
+    _scheduler_case(arch)
+    jcfg, tcfg, jparams, _ = _setup(arch)
+    (toks,) = _prompts(tcfg, [37])
+    _, jcache = _jax_prefill_one(jcfg, jparams, toks)
+    jwire, jbytes = jax_quantize(jcache)
+    wire, nbytes = quantize_cache_for_wire(to_torch(jcache))
+    assert nbytes == jbytes
+    assert_trees_identical(jwire, wire)
+
+
+def _scheduler_case(arch):
+    jcfg, tcfg, jparams, tparams = _setup(arch)
     lens = [20, 45, 150, 9, 33, 60]
     budgets = [5, 9, 30, 12, 3, 7]
     prompts = _prompts(tcfg, lens, seed=2)

@@ -4,8 +4,8 @@ reference's ``tests/test_spec_decode.py``:
 
   * through ``RegionScheduler`` (slot churn, a chunked prompt, budgets
     ending inside a block), ``spec_k=2`` streams equal the plain greedy
-    streams on kimi-linear-1t, mistral-nemo-12b and zamba2-1.2b, dense and
-    paged, and ``spec_k=0`` is the plain path (no speculative buffers);
+    streams on kimi-linear-1t, mistral-nemo-12b, zamba2-1.2b and
+    h2o-danube-1.8b (sliding-window rings), dense and paged, and ``spec_k=0`` is the plain path (no speculative buffers);
   * the scan verify is bitwise q ``decode_step``s; the parallel verify is
     within 1e-5 of them, with the same argmax;
   * drafting the model's own continuation accepts in full, a wrong draft
@@ -41,7 +41,8 @@ from repro_torch.serving.engine import (DecodeEngine, PrefillEngine,
 torch.set_num_threads(1)
 SLOTS, CAPACITY, BLOCK, MAX_BUCKET, PAGE = 4, 384, 8, 64, 16
 SPEC_K = 2
-ARCHS = ["kimi-linear-1t", "mistral-nemo-12b", "zamba2-1.2b"]
+ARCHS = ["kimi-linear-1t", "mistral-nemo-12b", "zamba2-1.2b",
+         "h2o-danube-1.8b"]
 
 
 @functools.lru_cache(maxsize=None)

@@ -102,7 +102,8 @@ def _random_caches(model, B, S, seed):
 # of 3072 at 1.03e-5).  Caches: ``tests/test_torch_model.py``'s tolerance
 # for decode caches against the reference (the conv leaves hold projections
 # of those sums: zamba2's up to 4e-5 apart)
-LOGIT_TOL = {"kimi-linear-1t": 1e-5, "zamba2-1.2b": 2e-5, GQA: 1e-5}
+LOGIT_TOL = {"kimi-linear-1t": 1e-5, "zamba2-1.2b": 2e-5, GQA: 1e-5,
+             "h2o-danube-1.8b": 1e-5}
 CACHE_TOL = dict(atol=3e-4, rtol=1e-3)
 
 

@@ -38,7 +38,8 @@ from repro_torch.params import init_params
 from repro_torch.serving.engine import PrefillEngine, trim_request_cache
 
 torch.set_num_threads(1)
-ARCHS = ("kimi-linear-1t", "mistral-nemo-12b", "zamba2-1.2b")
+ARCHS = ("kimi-linear-1t", "mistral-nemo-12b", "zamba2-1.2b",
+         "h2o-danube-1.8b")
 DTYPES = (torch.float32, torch.bfloat16)
 
 
