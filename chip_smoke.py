@@ -70,11 +70,23 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
          slot's private ring table of 256 pages), with the same 4992-token
          session, past the window, whose later turn, paged, resumes from
          the ring snapshot (4992 cached tokens) and prefills 600;
+       * ``xlstm-350m`` at full width and depth (12 [mLSTM, sLSTM] pairs,
+         ~0.38 GB of bf16 weights), dense and then paged (state slots
+         alone: it has no attention), over ten prompts of 64-640 tokens
+         in chunks of 256 with threshold 256 (the sLSTM is a plain
+         PyTorch step a token, host-bound: ``slstm_prefill_cost`` times
+         it first), whose 512-token session's later turn, paged, resumes
+         from the state snapshot and prefills 128; every leaf ships as it
+         is (ratio 1, as the reference's wire); its greedy replay on both
+         layouts, sampled on the paged one, speculative decode with
+         prompts cut to 256 tokens, and its logit checks (float32 gated:
+         the prefill within 2 %, the paged decode step equal to the dense
+         one bit for bit);
      random weights from a seed, each model's weights freed before the
      next one's load; on each path the first offloaded request's in-situ
      wire payload must equal the plain encode of its batch cache, byte for
      byte, and each decode engine must have captured its block once; then
-     on each of the five paths two decode engines, the graph replayed and
+     on each path two decode engines, the graph replayed and
      the eager block (``graphs=False``), take the same eight prefilled
      requests and must emit the same tokens (``check_replay``); on the two
      kimi paths again sampling (temperature 0.8, top-k 50): graph and
@@ -136,7 +148,7 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      kernels no further from the float32 ones than 1.5x the plain bf16
      gradients' distance;
   7. the reference's KDA:MLA 3:1 training recipe at its 100m scale
-     (``repro_torch.examples.train_100m``): 30 steps of 8 x 1024 tokens
+     (``repro_torch.examples.train_100m``): 20 steps of 8 x 1024 tokens
      through ``TrainLoop`` with checkpoints in a temporary directory (the
      KDA mixers on the unmasked delta kernel, row 5); its loss must fall.
 
@@ -189,6 +201,14 @@ TOL_LOGITS = 2e-2
 TOL_PEAK = 1.05
 # the sampled decode the new phases run
 SAMPLING = dict(temperature=0.8, top_k=50)
+# xlstm-350m's traffic: ten prompts of 64-640 tokens, the 512-token
+# session at index 5 (its later turn adds 128), a threshold of 256 so both
+# routes occur, and chunks of 256 tokens.  Cut from 64-3000 tokens,
+# threshold and chunks 1024 and a 2048 + 512-token session: the sLSTM's
+# plain steps cost ~0.5 ms a token a layer of host time on the card
+# (``slstm_prefill_cost``), which put that traffic's phase at ~460 s
+XLSTM_LENS = (64, 100, 200, 256, 300, 512, 180, 400, 640, 120)
+XLSTM_SESSION, XLSTM_EXT, XLSTM_CHUNK = 512, 128, 256
 # the launcher phase: zamba2-1.2b, the hybrid family the launcher serves at
 # full width and depth on one card, through three PD regions with
 # cross-validation against the simulator replay (``--calibration`` and
@@ -468,13 +488,17 @@ def scan_entry(torch, dev, g, close, atol_needed, name, source, replaces,
                 shapes=out)
 
 
-# rows 6 and 7 (the GLA core), all bf16 at zamba2's Mamba2 head (H = 32,
-# dk = 64, dv = 128): the shape each is timed at in the table, and the
-# shapes the main paths run it at (zamba2's 4096-token prefill chunk,
-# masked; its 2048-token training microbatch, unmasked)
+# rows 6 and 7 (the GLA core), all bf16, at zamba2's Mamba2 head (H = 32,
+# dk = 64, dv = 128) unless a head (dk, dv) is given: the shape each is
+# timed at in the table, and the shapes the main paths run it at (zamba2's
+# 4096-token prefill chunk, masked; its 2048-token training microbatch,
+# unmasked; xlstm-350m's 256-token mLSTM prefill chunk, 4 heads of dk 256
+# and dv 257, the normaliser's ones column included)
 GLA_SHAPES = {
     "row7_table": ("gla_chunked_fused", (2, 32, 4096), (4096, 2500)),
     "row7_zamba2_prefill": ("gla_chunked_fused", (1, 32, 4096), (4096,)),
+    "row7_xlstm_prefill": ("gla_chunked_fused", (1, 4, XLSTM_CHUNK),
+                           (XLSTM_CHUNK,), (256, 257)),
     "row6_table": ("gla_chunked", (2, 32, 2048), None),
     "row6_zamba2_train": ("gla_chunked", (1, 32, 2048), None),
 }
@@ -490,8 +514,8 @@ def gla_case(torch, dev, g, tag):
     tensor-core rate."""
     from repro_torch.kernels import gla as kg
 
-    name, (B, H, S), lens = GLA_SHAPES[tag]
-    dk, dv = 64, 128
+    name, (B, H, S), lens, *head = GLA_SHAPES[tag]
+    dk, dv = head[0] if head else (64, 128)
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev) * scale
@@ -1235,11 +1259,16 @@ def check_paged_kernels(torch, dev, g, randn, close, atol_needed):
     return out
 
 
-def main_path(torch, dev, cfg, params, *, paged: bool, session_len=5000):
+def main_path(torch, dev, cfg, params, *, paged: bool, session_len=5000,
+              lens=None, ext_len=600, threshold=2048, max_bucket=4096):
     """Phase 4: the PrfaaS serving loop, every kernel launch counted from 0:
-    prompts of 100-12000 tokens through both routes with int8 wire
-    compression, then a 600-token later turn of the ``session_len``-token
-    session.  Paged: each region's decode engine runs on pool pages it
+    prompts of 100-12000 tokens (``lens``, the session's at index 5)
+    through both routes (``threshold``; prompts past ``max_bucket``
+    chunked) with int8 wire compression, then an ``ext_len``-token later
+    turn of the ``session_len``-token session.  The wire must compress,
+    unless the model has no attention block (xLSTM): its caches hold no k
+    / v / latent leaf, so every leaf ships as it is, as the reference's
+    wire does, and the ratio must be 1.  Paged: each region's decode engine runs on pool pages it
     shares with its prefix cache, and the later turn resumes from the
     device pages of its prefix where the architecture allows (page-aligned
     state snapshots for linear mixers, so never on kimi's 5000-token
@@ -1249,22 +1278,27 @@ def main_path(torch, dev, cfg, params, *, paged: bool, session_len=5000):
     (:class:`WireWitness`)."""
     import numpy as np
 
+    from repro_torch.configs.base import AttentionSpec
     from repro_torch.kernels import build
     from repro_torch.models import Model
     from repro_torch.serving import (CrossDCDeployment, DeploymentConfig,
                                      Request)
 
     dep = CrossDCDeployment(Model(cfg), params, DeploymentConfig(
-        threshold=2048, pd_clusters=1, wire_compression=True,
+        threshold=threshold, pd_clusters=1, wire_compression=True,
         decode_slots=8, capacity=16384, decode_block_size=8,
-        min_prefill_bucket=128, max_prefill_bucket=4096, paged_kv=paged))
+        min_prefill_bucket=128, max_prefill_bucket=max_bucket,
+        paged_kv=paged))
     rng = np.random.default_rng(0)
-    lens = [100, 700, 1500, 2500, 3800, session_len, 9000, 12000, 300]
+    if lens is None:
+        lens = [100, 700, 1500, 2500, 3800, session_len, 9000, 12000, 300]
+    lens = list(lens)
+    lens[5] = session_len
     prompts = [rng.integers(0, cfg.vocab_size, (L,)).astype(np.int32)
                for L in lens]
     # a later turn of the session: its prefix is cached
-    ext = np.concatenate([prompts[5], rng.integers(0, cfg.vocab_size, (600,))
-                          .astype(np.int32)])
+    ext = np.concatenate([prompts[5], rng.integers(
+        0, cfg.vocab_size, (ext_len,)).astype(np.int32)])
     batches = [[Request(rid=i, tokens=t, max_new_tokens=16)
                 for i, t in enumerate(prompts)],
                [Request(rid=len(prompts), tokens=ext, max_new_tokens=16)]]
@@ -1318,8 +1352,11 @@ def main_path(torch, dev, cfg, params, *, paged: bool, session_len=5000):
     wire_raw = sum(r.kv_bytes_raw for r in reqs if r.route == "prfaas")
     wire_q = sum(r.kv_bytes for r in reqs if r.route == "prfaas")
     ratio = dep.measured_compression()
-    if not (wire_q > 0 and ratio > 1.0):
-        fail(f"wire bytes {wire_q}, compression {ratio}")
+    has_attn = any(isinstance(b.mixer, AttentionSpec)
+                   for g in cfg.groups for b in g.blocks)
+    if not (wire_q > 0 and (ratio > 1.0 if has_attn
+                            else ratio == 1.0 and wire_q == wire_raw)):
+        fail(f"wire bytes {wire_q} (raw {wire_raw}), compression {ratio}")
     for r in reqs:
         toks = np.asarray(out[r.rid].output_tokens)
         if toks.min() < 0 or toks.max() >= cfg.vocab_size:
@@ -1330,8 +1367,12 @@ def main_path(torch, dev, cfg, params, *, paged: bool, session_len=5000):
         "requests": len(reqs), "routes": routes,
         "prompt_tokens": [len(r.tokens) for r in reqs],
         "cached_tokens": [r.cached_tokens for r in reqs],
-        "chunked": sum(1 for r in reqs if len(r.tokens) > 4096),
+        "chunked": sum(1 for r in reqs if len(r.tokens) > max_bucket),
         "tokens_out": sum(len(out[r.rid].output_tokens) for r in reqs),
+        # a digest of every request's tokens, to compare layouts by
+        "tokens_sha1": hashlib.sha1(json.dumps(
+            {r.rid: out[r.rid].output_tokens for r in reqs},
+            sort_keys=True).encode()).hexdigest(),
         "pd_tokens_prefilled": prefilled,
         "wire_raw_bytes": wire_raw, "wire_quantized_bytes": wire_q,
         "wire_compression": ratio,
@@ -1625,14 +1666,16 @@ def profile_decode_block(torch, dev, cfg, params):
     return out
 
 
-def _replay_prompts(cfg):
+def _replay_prompts(cfg, cap=None):
     """(lengths, right-padded tokens) of eight prompts of 100-2000 tokens
-    from a seed."""
+    from a seed (each cut to ``cap`` tokens when given)."""
     import numpy as np
     rng = np.random.default_rng(4)
     lens = rng.integers(100, 2000, 8).astype(np.int32)
     toks = rng.integers(0, cfg.vocab_size, (8, int(lens.max()))
                         ).astype(np.int32)
+    if cap is not None:
+        lens, toks = np.minimum(lens, cap), toks[:, :cap]
     return lens, toks
 
 
@@ -1706,7 +1749,7 @@ def prefill_repeatability(torch, dev, cfg, params):
 
 
 def check_replay(torch, dev, cfg, params, *, paged: bool,
-                 sampled: bool = False):
+                 sampled: bool = False, cap=None):
     """The captured block against the eager one on a served path: two
     decode engines (``graphs`` on and off) of 8 slots get the same
     admissions, eight prompts of 100-2000 tokens prefilled once from a
@@ -1716,8 +1759,8 @@ def check_replay(torch, dev, cfg, params, *, paged: bool,
     and four more graph engines take the same admissions: one of the same
     seed (the same tokens), one of another seed (other tokens), one at
     temperature 1 and top-k 1 and one greedy (the same tokens as each
-    other).  Returns each engine's decode wall and the graph's launches a
-    replay."""
+    other).  ``cap``: the prompts cut to that many tokens.  Returns each
+    engine's decode wall and the graph's launches a replay."""
     import numpy as np
 
     from repro_torch.models import Model
@@ -1725,7 +1768,7 @@ def check_replay(torch, dev, cfg, params, *, paged: bool,
     from repro_torch.serving.engine import trim_request_cache
 
     model = Model(cfg)
-    lens, toks = _replay_prompts(cfg)
+    lens, toks = _replay_prompts(cfg, cap)
     first, caches, _ = PrefillEngine(model, params, min_bucket=128,
                                      max_bucket=4096).prefill(toks, lens)
     entries = [(Request(rid=i, tokens=toks[i, :L], max_new_tokens=20 + i),
@@ -1789,21 +1832,22 @@ def check_replay(torch, dev, cfg, params, *, paged: bool,
 SPEC = dict(spec_k=2, spec_ngram=1)
 
 
-def _spec_prompts(cfg, long_prompt: int = 0):
+def _spec_prompts(cfg, long_prompt: int = 0, cap=None):
     """(lengths, right-padded tokens) of the eight ``_replay_prompts`` and
     a ninth of a 16-token phrase repeated to 1024 tokens, on which the
-    drafter's guesses can land; ``long_prompt``: a tenth of that many
-    tokens, the phrase repeated after a random head (a sliding window's
-    ring wraps on it)."""
+    drafter's guesses can land (all nine cut to ``cap`` tokens when
+    given); ``long_prompt``: a tenth of that many tokens, the phrase
+    repeated after a random head (a sliding window's ring wraps on it)."""
     import numpy as np
-    lens, toks = _replay_prompts(cfg)
+    lens, toks = _replay_prompts(cfg, cap)
     rng = np.random.default_rng(5)
     phrase = rng.integers(0, cfg.vocab_size, 16)
     n = 10 if long_prompt else 9
-    rows = np.zeros((n, max(toks.shape[1], long_prompt)), np.int32)
+    rep = min(1024, cap or 1024)
+    rows = np.zeros((n, max(toks.shape[1], long_prompt, rep)), np.int32)
     rows[:8, :toks.shape[1]] = toks
-    rows[8, :1024] = np.resize(phrase, 1024)
-    lens = np.append(lens, 1024)
+    rows[8, :rep] = np.resize(phrase, rep)
+    lens = np.append(lens, rep)
     if long_prompt:
         head = long_prompt - 512
         rows[9, :head] = rng.integers(0, cfg.vocab_size, head)
@@ -1814,7 +1858,7 @@ def _spec_prompts(cfg, long_prompt: int = 0):
 
 def check_spec(torch, dev, cfg, params, *, launches=None, eager=True,
                gate_identity=(), profile=(), layouts=(False, True),
-               long_prompt=0):
+               long_prompt=0, cap=None):
     """Speculative decode on a model's dense and paged served paths
     (``layouts``; False: dense, True: paged): the nine ``_spec_prompts``
     (ten with ``long_prompt``), prefilled once (budgets 16-25 tokens), are
@@ -1826,7 +1870,9 @@ def check_spec(torch, dev, cfg, params, *, launches=None, eager=True,
     graph engine captures once; ``verify_rounds > 0`` and
     ``accepted_tokens >= verify_rounds``; the paged pool conserves its
     pages; the speculative graph launches the layout's decode kernel, its
-    launches counted from 0 (added to ``launches``).  The count of
+    launches counted from 0 (added to ``launches``; a model without
+    attention, xLSTM, has no decode kernel and must launch none).
+    ``cap``: the eight prompts cut to that many tokens.  The count of
     requests whose speculative tokens equal the plain greedy ones, and
     each other one's first divergence, are recorded; on the layouts in
     ``gate_identity`` every request's must (the decode cores are
@@ -1837,13 +1883,16 @@ def check_spec(torch, dev, cfg, params, *, launches=None, eager=True,
     {"dense": summary, "paged": summary}."""
     import numpy as np
 
+    from repro_torch.configs.base import AttentionSpec
     from repro_torch.kernels import build
     from repro_torch.models import Model
     from repro_torch.serving import DecodeEngine, PrefillEngine, Request
     from repro_torch.serving.engine import trim_request_cache
 
     model = Model(cfg)
-    lens, toks = _spec_prompts(cfg, long_prompt)
+    kernel_free = not any(isinstance(b.mixer, AttentionSpec)
+                          for g in cfg.groups for b in g.blocks)
+    lens, toks = _spec_prompts(cfg, long_prompt, cap)
     capacity = max(2304, -(-(long_prompt + 64) // 256) * 256)
     first, caches, _ = PrefillEngine(model, params, min_bucket=128,
                                      max_bucket=4096).prefill(toks, lens)
@@ -1884,7 +1933,10 @@ def check_spec(torch, dev, cfg, params, *, launches=None, eager=True,
             if tag == "spec":
                 counts = dict(build.LAUNCHES)
                 res["spec_launches"] = counts
-                if counts.get(kernel, 0) <= 0:
+                if kernel_free and counts:
+                    fail(f"{what}: kernels {counts} launched by a decode "
+                         "step that has none")
+                if not kernel_free and counts.get(kernel, 0) <= 0:
                     fail(f"{what}: {kernel} was not launched")
                 if launches is not None:
                     for name, c in counts.items():
@@ -2359,6 +2411,190 @@ def danube_paths(torch, dev, paths, launches):
                                                         params)
 
 
+def slstm_prefill_cost(torch, dev, cfg, params, L=XLSTM_CHUNK):
+    """What the sLSTM recurrence (plain PyTorch, a step a token) costs a
+    prefill: one L-token prompt through ``PrefillEngine``, then the
+    model's sLSTM mixers alone on hidden states of the same shape (each
+    layer's ``linear_forward`` with the lengths, as the prefill calls it),
+    each timed on the host's clock after a warm-up, synchronized; and the
+    device kernels one layer launches per token (``torch.profiler`` over
+    a 64-token call).  Returns ms per token per layer, the sLSTM's share
+    of the prefill's wall and the launches per token per layer."""
+    import numpy as np
+
+    from repro_torch.models import Model
+    from repro_torch.models import linear_attention as lin
+    from repro_torch.models.tree import tree_map
+    from repro_torch.serving import PrefillEngine
+
+    peng = PrefillEngine(Model(cfg), params, min_bucket=128, max_bucket=L)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (1, L)
+                                             ).astype(np.int32)
+
+    def wall(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    prefill_ms = wall(lambda: peng.prefill(toks, np.array([L], np.int32)))
+    # (spec, one layer's mixer params) of every sLSTM layer
+    cells = [(b.mixer, tree_map(lambda w, r=r: w[r], params["groups"][gi][
+        "stacked"][f"b{bi}"]["mixer"]))
+             for gi, g in enumerate(cfg.groups)
+             for bi, b in enumerate(g.blocks)
+             if getattr(b.mixer, "kind", "") == "slstm"
+             for r in range(g.repeats)]
+    layers = len(cells)
+    x = torch.randn((1, L, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(7)
+                    ).to(params["embed"].dtype)
+    lengths = torch.tensor([L], dtype=torch.int32, device=dev)
+
+    def slstm_layers():
+        with torch.no_grad():
+            for m, p in cells:
+                lin.linear_forward(p, x, m, lengths=lengths)
+
+    slstm_ms = wall(slstm_layers)
+    m, p = cells[0]
+    with torch.no_grad():
+        kernels = _device_kernels(torch, lambda: lin.linear_forward(
+            p, x[:, :64], m, lengths=lengths.clamp(max=64)), 3)
+    per_token = sum(c for _, c in kernels.values()) / 64
+    return {"prompt_tokens": L, "prefill_ms": prefill_ms,
+            "slstm_layers": layers, "slstm_ms": slstm_ms,
+            "slstm_ms_per_token_per_layer": slstm_ms / (L * layers),
+            "slstm_share_of_prefill": slstm_ms / prefill_ms,
+            "slstm_launches_per_token_per_layer": per_token,
+            "slstm_device_ms_per_token_per_layer": sum(
+                ms for ms, _ in kernels.values()) / 64}
+
+
+def compare_paged_dense_step(torch, dev, cfg, params, lens=(1000, 700)):
+    """One decode step of two prefilled prompts (``lens`` tokens) over the
+    paged layout and over the dense one, from the same admissions:
+    (largest logit difference, logits equal bit for bit)."""
+    import numpy as np
+
+    from repro_torch.models import Model
+    from repro_torch.serving import DecodeEngine, PrefillEngine, Request
+    from repro_torch.serving.engine import trim_request_cache
+
+    model, lens = Model(cfg), list(lens)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab_size, (2, max(lens))).astype(np.int32)
+    first, caches, _ = PrefillEngine(model, params, min_bucket=128).prefill(
+        toks, np.asarray(lens, np.int32))
+    out = []
+    for paged in (False, True):
+        dec = DecodeEngine(model, params, 2, 4096, paged=paged,
+                           page_tokens=16)
+        dec.admit_many([(Request(rid=i, tokens=toks[i, :L],
+                                 max_new_tokens=64), int(first[i]),
+                         trim_request_cache(caches, i, L), L)
+                        for i, L in enumerate(lens)])
+        with torch.no_grad():
+            lg, _ = model.decode_step(
+                params, torch.as_tensor(first, device=dev).long(),
+                dec.caches, torch.tensor(lens, dtype=torch.int32, device=dev),
+                **dec._tables_kw())
+        out.append(lg)
+        del dec
+    return {"logits_max_abs_diff": float((out[0] - out[1]).abs().max()),
+            "bitwise_equal": bool(torch.equal(out[0], out[1]))}
+
+
+def xlstm_paths(torch, dev, paths, launches):
+    """xlstm-350m at full width and depth (24 layers: 12 [mLSTM, sLSTM]
+    pairs, d_model 1024, 4 heads of 256, ~0.38 GB of bf16 weights): the
+    sLSTM's cost in a prefill first; then dense and paged (state slots
+    alone: no attention, tables of zero columns) over ``XLSTM_LENS`` in
+    chunks of ``XLSTM_CHUNK``, whose later turn, paged, resumes from the
+    session's state snapshot and prefills only its suffix; every leaf
+    ships as it is (ratio 1, as the reference); the mLSTM prefill launches
+    the masked GLA kernel (row 7 at dk 256, dv 257).  Then the greedy
+    replay checks on both layouts (the paged engine's tokens gated equal
+    to the dense one's) and the sampled one on the paged layout,
+    speculative decode with the prompts cut to ``XLSTM_CHUNK`` tokens
+    (bf16 tokens gated equal to the plain greedy ones; the decode step
+    has no kernel), and the logit checks: bf16 recorded, the 2 % prefill
+    gate and the paged decode step's equality with the dense one held in
+    float32."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("xlstm-350m")
+    params = load_params(torch, dev, cfg, 4)
+    torch.cuda.reset_peak_memory_stats()
+    cost = slstm_prefill_cost(torch, dev, cfg, params)
+    paths["xlstm_slstm_cost"] = cost
+    print(f"xlstm_slstm_cost: {cost}", flush=True)
+    for tag, paged in (("xlstm_dense", False), ("xlstm_paged", True)):
+        summary, counts, dep = main_path(
+            torch, dev, cfg, params, paged=paged, session_len=XLSTM_SESSION,
+            lens=XLSTM_LENS, ext_len=XLSTM_EXT, threshold=XLSTM_CHUNK,
+            max_bucket=XLSTM_CHUNK)
+        del dep
+        require_launched(counts, ("gla_chunked_fused",), tag)
+        if paged:
+            pin = summary["device_pin_cached_len"]
+            if pin != XLSTM_SESSION:
+                fail(f"the later turn on xlstm pinned {pin} cached tokens, "
+                     f"not its {XLSTM_SESSION}-token state snapshot")
+            if summary["pd_tokens_prefilled"][-1] != XLSTM_EXT:
+                fail(f"the later turn on xlstm prefilled "
+                     f"{summary['pd_tokens_prefilled'][-1]} tokens, not its "
+                     f"{XLSTM_EXT}-token suffix")
+        paths[tag] = summary
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        print(f"{tag}: {summary['wall_s']:.2f} s wall, warm-up "
+              f"{summary['warmup_s']:.2f} s, launches: gla_chunked_fused "
+              f"{counts.get('gla_chunked_fused', 0)}, quantize_int8_fused "
+              f"{counts.get('quantize_int8_fused', 0)}", flush=True)
+        for sampled in (False, True) if paged else (False,):
+            key = f"{tag}_replay" + ("_sampled" if sampled else "")
+            paths[key] = check_replay(torch, dev, cfg, params, paged=paged,
+                                      sampled=sampled, cap=XLSTM_CHUNK)
+            print(f"{key}: {paths[key]}", flush=True)
+        gc_cuda(torch)
+    # the same admissions decode to the same tokens over both layouts
+    # (gated); the served traffic's tokens are recorded side by side (its
+    # paged later turn resumes from the snapshot, its dense one prefills
+    # the whole prompt)
+    if (paths["xlstm_dense_replay"]["tokens_sha1"]
+            != paths["xlstm_paged_replay"]["tokens_sha1"]):
+        fail("xlstm: the paged decode engine's tokens differ from the "
+             "dense one's on the same admissions")
+    paths["xlstm_served_tokens_equal"] = (
+        paths["xlstm_dense"]["tokens_sha1"]
+        == paths["xlstm_paged"]["tokens_sha1"])
+    for layout, res in check_spec(torch, dev, cfg, params, launches=launches,
+                                  gate_identity=(False, True),
+                                  cap=XLSTM_CHUNK).items():
+        paths[f"xlstm_{layout}_spec"] = res
+    gc_cuda(torch)
+    paths["xlstm_logits_bf16"] = compare_logits(torch, dev, cfg, params,
+                                                gate=False, S=XLSTM_CHUNK)
+    paths["xlstm_paged_dense_step_bf16"] = compare_paged_dense_step(
+        torch, dev, cfg, params, lens=(XLSTM_CHUNK, 180))
+    cfg, params = to_float32(cfg, params)
+    torch.cuda.empty_cache()
+    paths["xlstm_logits_f32"] = compare_logits(torch, dev, cfg, params,
+                                               S=XLSTM_CHUNK)
+    step = compare_paged_dense_step(torch, dev, cfg, params,
+                                    lens=(XLSTM_CHUNK, 180))
+    paths["xlstm_paged_dense_step_f32"] = step
+    if not step["bitwise_equal"]:
+        fail(f"xlstm: the float32 paged decode step differs from the dense "
+             f"one: {step}")
+    paths["xlstm_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    gc_cuda(torch)
+
+
 def _grad_gap(torch, got, want):
     """Two gradient trees: (relative gap of their global norms,
     ||got - want|| / ||want||, the leaf with the largest share of
@@ -2506,7 +2742,7 @@ def hybrid_train(torch, dev):
     """Phase 7: the reference's KDA:MLA 3:1 recipe at its 100m scale
     (53.7 M params, 12 layers, float32) through the port's copy of
     ``examples/train_100m.py``: ``TrainLoop`` with checkpoints in a
-    temporary directory, 30 steps of batch 8 x 1024 tokens in two
+    temporary directory, 20 steps of batch 8 x 1024 tokens in two
     microbatches, every kernel launch counted from 0."""
     import math
     import tempfile
@@ -2518,7 +2754,7 @@ def hybrid_train(torch, dev):
     build.reset_launches()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as ckpt:
-        cfg, hist, stragglers = run("100m", steps=30, batch=8, seq=1024,
+        cfg, hist, stragglers = run("100m", steps=20, batch=8, seq=1024,
                                     device=dev, ckpt_dir=ckpt)
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
@@ -2765,6 +3001,8 @@ def main():
     danube_paths(torch, dev, paths, launches)
     gc_cuda(torch)
     phase("danube")
+    xlstm_paths(torch, dev, paths, launches)
+    phase("xlstm")
 
     # the serving launcher end to end, calibrated, sampled, cross-validated
     runs, counts = launcher(torch, dev, ROOT / calib["path"])

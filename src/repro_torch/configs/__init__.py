@@ -1,7 +1,7 @@
 """Architecture registry of the port: the architectures it can serve."""
 from repro_torch.configs import (granite_20b, h2o_danube_1_8b,
                                  kimi_linear_1t, mistral_nemo_12b,
-                                 qwen2_5_3b, zamba2_1_2b)
+                                 qwen2_5_3b, xlstm_350m, zamba2_1_2b)
 from repro_torch.configs.base import (AttentionSpec, BlockSpec, FFNSpec,
                                       GroupSpec, LinearSpec, ModelConfig,
                                       reduce_for_smoke)
@@ -13,6 +13,7 @@ ARCH_BUILDERS = {
     "h2o-danube-1.8b": h2o_danube_1_8b.build,
     "qwen2.5-3b": qwen2_5_3b.build,
     "granite-20b": granite_20b.build,
+    "xlstm-350m": xlstm_350m.build,
 }
 
 

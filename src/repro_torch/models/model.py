@@ -9,7 +9,8 @@ each group's blocks stacked over its repeats as ``(R, ...)`` leaves under
 under ``"shared"``; a Python loop over the repeats replaces ``lax.scan``.
 Caches keep the reference's keys and shapes: ``{"groups": [{"b0":
 {"state", "conv"}, ..., "b3": {"ckv", "kpe"}}]}`` with stacked ``(R, B, S,
-...)`` leaves; every block invocation, shared or not, has its own cache.
+...)`` leaves (sLSTM's ``state`` is itself a dict, ``{"c", "n", "m",
+"h"}``); every block invocation, shared or not, has its own cache.
 
 Full-attention blocks cache ``{"k", "v"}`` (R, B, S, Hkv, D),
 sliding-window ones the same leaves as rings of ``min(window, S)`` rows.  With
@@ -20,9 +21,8 @@ block tables.
 The serving path's MoE is always the exact dropless form (the reference's
 inference default): a sorted loop over experts in prefill, every expert at
 once in decode, where it must not sync the host.  Architectures whose blocks the port does not serve
-yet (encoders, image prefixes, cross-attention, mixers other
-than KDA/GDN, Mamba2, GQA, SWA and MLA) raise ``NotImplementedError`` at
-construction.  Training (``train_loss``) builds no caches; it runs dense
+yet (encoders, image prefixes, cross-attention, the GLA mixer kind)
+raise ``NotImplementedError`` at construction.  Training (``train_loss``) builds no caches; it runs dense
 and FFN-less blocks, and raises ``NotImplementedError`` on a MoE block
 (capacity MoE and its aux loss are ROADMAP A10).
 """
@@ -86,6 +86,24 @@ def _unbind_reps(tree, R: int):
 
 def _stack(trees):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _copy_new(stacked, cur, new, r: int):
+    """Copy each leaf of ``new`` that is not the view ``cur`` of repeat
+    ``r`` into the stacked cache, walking nested leaves (sLSTM's
+    {"state": {"c", "n", "m", "h"}})."""
+    for name, t in new.items():
+        if isinstance(t, dict):
+            _copy_new(stacked[name], cur[name], t, r)
+        elif t.data_ptr() != cur[name].data_ptr():
+            stacked[name][r].copy_(t)
+
+
+def _state_leaves(block_cache):
+    """A block cache's O(1) mixer subtrees (``state``, which is nested for
+    sLSTM, and ``conv``): every entry but the attention sequence
+    leaves."""
+    return {n: v for n, v in block_cache.items() if n not in _ATTN_LEAVES}
 
 
 # leaves of a table-direct prior (``paged.build_prior``) that pass through a
@@ -337,9 +355,7 @@ class Model:
                     key = f"b{bi}"
                     cur = _rep(gc[key], r)
                     x, new = block(b, pr[key], x, cur)
-                    for name, t in new.items():
-                        if t.data_ptr() != cur[name].data_ptr():
-                            gc[key][name][r].copy_(t)
+                    _copy_new(gc[key], cur, new, r)
         return x
 
     # ------------------------------------------------- speculative verify
@@ -365,12 +381,11 @@ class Model:
         ``batch``: the slots (read off a dense leaf when not given)."""
         snaps, rings = [], []
         for g, gc in zip(self.cfg.groups, caches["groups"]):
-            snaps.append({key: {n: torch.zeros((q - 1,) + leaf.shape,
-                                               dtype=leaf.dtype,
-                                               device=leaf.device)
-                                for n, leaf in leaves.items()
-                                if n not in _ATTN_LEAVES}
-                          for key, leaves in gc.items()})
+            snaps.append({key: tree_map(
+                lambda leaf: torch.zeros((q - 1,) + leaf.shape,
+                                         dtype=leaf.dtype,
+                                         device=leaf.device),
+                _state_leaves(leaves)) for key, leaves in gc.items()})
             ring = {}
             for bi, b in enumerate(g.blocks):
                 if not attn_mod.is_ring(b.mixer):
@@ -433,8 +448,8 @@ class Model:
             if j < q - 1:
                 for gc, sg in zip(caches["groups"], pending["snaps"]):
                     for key, leaves in sg.items():
-                        for name, buf in leaves.items():
-                            buf[j].copy_(gc[key][name])
+                        tree_map(lambda buf, cur: buf[j].copy_(cur), leaves,
+                                 _state_leaves(gc[key]))
         return torch.stack(logits, dim=1), caches, pending
 
     def commit_verify(self, caches, pending, accept):
@@ -450,17 +465,18 @@ class Model:
             for key, saved in rg.items():
                 attn_mod.ring_restore(gc[key], saved, accept,
                                       pending["paged"])
+
+        def rewind(snaps, cur):                       # (q - 1, R, B, ...)
+            last = snaps.shape[0]                     # q - 1
+            B = cur.shape[1]
+            got = snaps[torch.clamp(accept, max=last - 1), :,
+                        torch.arange(B, device=cur.device)]
+            keep = (accept >= last).reshape((1, B) + (1,) * (cur.dim() - 2))
+            cur.copy_(torch.where(keep, cur, got.transpose(0, 1)))
+
         for gc, sg in zip(caches["groups"], pending["snaps"]):
             for key, leaves in sg.items():
-                for name, snaps in leaves.items():
-                    cur = gc[key][name]                       # (R, B, ...)
-                    last = snaps.shape[0]                     # q - 1
-                    B = cur.shape[1]
-                    got = snaps[torch.clamp(accept, max=last - 1), :,
-                                torch.arange(B, device=cur.device)]
-                    keep = (accept >= last).reshape(
-                        (1, B) + (1,) * (cur.dim() - 2))
-                    cur.copy_(torch.where(keep, cur, got.transpose(0, 1)))
+                tree_map(rewind, leaves, _state_leaves(gc[key]))
         return caches
 
     def init_cache(self, batch_size: int, capacity: int, device):
@@ -488,14 +504,19 @@ class Model:
                     gc[f"b{bi}"] = {"k": zeros(shape, dt),
                                     "v": zeros(shape, dt)}
                 else:
-                    c = {"state": zeros((R, B, m.heads, m.key_dim,
-                                         m.value_dim), torch.float32)}
-                    if m.conv_kernel:
-                        C = m.heads * (2 * m.key_dim + m.value_dim)
-                        c["conv"] = zeros((R, B, m.conv_kernel - 1, C), dt)
-                    gc[f"b{bi}"] = c
+                    gc[f"b{bi}"] = zeros_of(lin_mod.state_shapes(m, B, dt),
+                                            (R,), device)
             groups.append(gc)
         return {"groups": groups}
+
+
+def zeros_of(shapes, lead, device):
+    """Zeroed tensors for a nested {name: (shape, dtype)} dict, each shape
+    prefixed by the dims ``lead``."""
+    return {n: zeros_of(v, lead, device) if isinstance(v, dict)
+            else torch.zeros(tuple(lead) + tuple(v[0]), dtype=v[1],
+                             device=device)
+            for n, v in shapes.items()}
 
 
 def _pad_seq(x, to: int):

@@ -8,7 +8,10 @@ addressed through per-slot block tables:
   * MLA latents:     ``ckv`` ``(R, P, T, rank)``, ``kpe`` ``(R, P, T, rope)``
   * SWA attention:   the same ``k`` / ``v`` pool leaves, addressed through
     a ring table (the ring is paged too, from the same pool)
-  * linear state:    unchanged per-slot leaves (O(1) per request)
+  * linear state:    unchanged per-slot leaves (O(1) per request; an
+    attention-free model, e.g. xLSTM, has tables of zero columns and
+    no pages in use: its paged path is these slots and the prefix
+    cache's state snapshots)
 
 ``P = num_pool_pages + 1``: the extra *sink* page (id ``num_pool_pages``,
 never handed out by the BlockPool) is where retired slots' tables point, so
@@ -33,7 +36,8 @@ import torch
 from repro_torch.configs.base import AttentionSpec, ModelConfig
 from repro_torch.models.attention import is_ring, ring_place, ring_unplace
 from repro_torch.models.kvcache import dequantize_cache_from_wire
-from repro_torch.models.model import torch_dtype
+from repro_torch.models.linear_attention import state_shapes
+from repro_torch.models.model import torch_dtype, zeros_of
 from repro_torch.models.tree import tree_leaves
 
 
@@ -99,26 +103,13 @@ def paged_layout(cfg: ModelConfig, capacity: int, page_tokens: int,
                        ring_cols=ring_tokens // T, ring_tokens=ring_tokens)
 
 
-def _state_shapes(m, batch: int, dt):
-    c = {"state": ((batch, m.heads, m.key_dim, m.value_dim), torch.float32)}
-    if m.conv_kernel:
-        C = m.heads * (2 * m.key_dim + m.value_dim)
-        c["conv"] = ((batch, m.conv_kernel - 1, C), dt)
-    return c
-
-
 def _zeros(cfg: ModelConfig, shapes, device):
     """Zeroed caches in the group structure: ``shapes(bspec)`` gives each
-    block's {leaf: (shape, dtype)}, stacked here over the group's
-    repeats."""
-    groups = []
-    for g in cfg.groups:
-        groups.append({
-            f"b{bi}": {n: torch.zeros((g.repeats,) + shape, dtype=dtype,
-                                      device=device)
-                       for n, (shape, dtype) in shapes(b).items()}
-            for bi, b in enumerate(g.blocks)})
-    return {"groups": groups}
+    block's {leaf: (shape, dtype)} (nested for sLSTM's state), stacked
+    here over the group's repeats."""
+    return {"groups": [{f"b{bi}": zeros_of(shapes(b), (g.repeats,), device)
+                        for bi, b in enumerate(g.blocks)}
+                       for g in cfg.groups]}
 
 
 def init_paged_cache(cfg: ModelConfig, num_slots: int, layout: PagedLayout,
@@ -136,7 +127,7 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, layout: PagedLayout,
         if isinstance(m, AttentionSpec):
             shape = (m.kv_heads, P, T, m.head_dim)
             return {"k": (shape, dt), "v": (shape, dt)}
-        return _state_shapes(m, num_slots, dt)
+        return state_shapes(m, num_slots, dt)
 
     return _zeros(cfg, shapes, device)
 
@@ -173,7 +164,7 @@ def zero_request_payload(cfg: ModelConfig, L: int, device):
         if isinstance(m, AttentionSpec):
             shape = (1, L, m.kv_heads, m.head_dim)
             return {"k": (shape, dt), "v": (shape, dt)}
-        return _state_shapes(m, 1, dt)
+        return state_shapes(m, 1, dt)
 
     return _zeros(cfg, shapes, device)
 

@@ -115,20 +115,31 @@ def _block(dr, lead, d, spec: BlockSpec):
         mx["kv_norm"] = dr.const(lead + (R,), 1.0)
         mx["wkv_b"] = _linear(dr, lead, R, m.kv_heads * 2 * D)
         mx["wo"] = _linear(dr, lead, H * D, d)
-    else:                                     # KDA / GDN / Mamba2
+    elif m.kind == "slstm":                   # no q/k/v, no conv
+        H, dv = m.heads, m.value_dim
+        mx = {"w_gates": _linear(dr, lead, d, 4 * H * dv),
+              "r_gates": dr.normal(lead + (H, dv, 4 * dv), dv ** -0.5),
+              "b_gates": dr.const(lead + (4 * H * dv,), 0.0),
+              "wo": _linear(dr, lead, H * dv, d),
+              "g_norm": dr.const(lead + (H * dv,), 1.0)}
+    else:                                     # KDA / GDN / Mamba2 / mLSTM
         H, dk, dv = m.heads, m.key_dim, m.value_dim
         mx = {"wq": _linear(dr, lead, d, H * dk),
               "wk": _linear(dr, lead, d, H * dk),
               "wv": _linear(dr, lead, d, H * dv),
               "wo": _linear(dr, lead, H * dv, d),
               "g_proj": _linear(dr, lead, d, H * dv),
-              "g_norm": dr.const(lead + (H * dv,), 1.0),
-              "a_proj": _linear(dr, lead, d, H),
-              "A_log": dr.const(lead + (H,), 0.0),
-              "dt_bias": dr.const(lead + (H,), 0.0)}
+              "g_norm": dr.const(lead + (H * dv,), 1.0)}
+        if m.kind == "mlstm":
+            mx["i_proj"] = _linear(dr, lead, d, H)
+            mx["f_proj"] = _linear(dr, lead, d, H)
+        else:
+            mx["a_proj"] = _linear(dr, lead, d, H)
+            mx["A_log"] = dr.const(lead + (H,), 0.0)
+            mx["dt_bias"] = dr.const(lead + (H,), 0.0)
         if m.kind == "mamba2":
             mx["D_skip"] = dr.const(lead + (H,), 0.0)
-        else:
+        elif m.kind in ("kda", "gdn"):
             mx["b_proj"] = _linear(dr, lead, d, H)
         if m.conv_kernel:
             C = H * (2 * dk + dv)

@@ -589,8 +589,8 @@ class DecodeEngine:
                         dim = 2 if buf.dim() == 5 else 1   # k/v vs latent
                         buf.index_copy_(dim, idx, pg.to(buf.dtype))
             for key, leaves in (state or {}).items():
-                for name, new in leaves.items():
-                    pools[key][name][:, slot].copy_(new[:, 0])
+                tree_map(lambda new, buf: buf[:, slot].copy_(new[:, 0]),
+                         leaves, {n: pools[key][n] for n in leaves})
 
     def _admit_paged(self, entries: Sequence[Tuple]) -> int:
         lay = self._layout

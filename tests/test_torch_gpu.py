@@ -325,6 +325,25 @@ def test_gla_matches_plain(cuda, dtype, B, H, S, dk, dv, lens):
     torch.testing.assert_close(st, st2, atol=1e-4, rtol=1e-3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,lens", [(1, 4096, (4096,)),
+                                      (2, 3000, (3000, 1777))])
+def test_gla_at_xlstm_shapes_matches_plain(cuda, dtype, B, S, lens):
+    """Row 7 at xlstm-350m's mLSTM shape: 4 heads, dk 256, dv 257 (the
+    values and the normaliser's ones column, one contiguous tensor, rows of
+    514 bytes in bf16), with lengths and a nonzero initial state."""
+    g = torch.Generator(device=cuda).manual_seed(27)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q, k, v, la, s0 = _gla_inputs(g, B, 4, S, 256, 256, lengths, dtype,
+                                  cuda)
+    v = torch.cat([v, v.new_ones(v.shape[:-1] + (1,))], dim=-1)
+    assert v.is_contiguous() and v.shape[-1] == 257
+    s0 = torch.cat([s0, s0[..., :1]], dim=-1)
+    o, st = gla_chunked_fused(q, k, v, la, lengths, s0)
+    torch.cuda.synchronize()
+    _gla_check((q, k, v, la, s0), lengths, o, st, dtype, cuda)
+
+
 def test_gla_op_routes_cuda_tensors_to_the_kernel(cuda):
     build.reset_launches()
     g = torch.Generator(device=cuda).manual_seed(9)
@@ -1202,7 +1221,8 @@ def _wave(cfg, peng, lens, seed, rid0):
 
 @pytest.mark.parametrize("paged", [False, True])
 @pytest.mark.parametrize("arch", ["kimi-linear-1t", "mistral-nemo-12b",
-                                  "zamba2-1.2b", "h2o-danube-1.8b"])
+                                  "zamba2-1.2b", "h2o-danube-1.8b",
+                                  "xlstm-350m"])
 def test_replayed_block_matches_eager(cuda, arch, paged):
     """The captured block, replayed, emits the eager block's tokens, two
     waves of admissions with budgets ending mid-block; one capture
@@ -1313,7 +1333,8 @@ def test_calibration_sweep_launches_the_flash_kernel(cuda, tmp_path):
 
 @pytest.mark.parametrize("paged", [False, True])
 @pytest.mark.parametrize("arch", ["kimi-linear-1t", "mistral-nemo-12b",
-                                  "zamba2-1.2b", "h2o-danube-1.8b"])
+                                  "zamba2-1.2b", "h2o-danube-1.8b",
+                                  "xlstm-350m"])
 def test_spec_replay_matches_eager(cuda, arch, paged):
     """The speculative block (``spec_k=2``, one-token n-grams), replayed,
     emits the eager block's tokens over two waves of admissions, with one

@@ -36,9 +36,11 @@ from repro.serving import DeploymentConfig as JaxDeploymentConfig
 from repro.serving import engine as jeng
 from repro.serving.api import PagePin as JaxPagePin
 from repro.serving.api import Request as JaxRequest
+from repro_torch.configs.base import AttentionSpec
 from repro_torch.core.blockpool import BlockPool
 from repro_torch.core.prefix_cache import HybridPrefixCache
 from repro_torch.models import Model
+from repro_torch.models import paged as tpaged
 from repro_torch.serving import CrossDCDeployment, DeploymentConfig
 from repro_torch.serving import engine as teng
 from repro_torch.serving.api import PagePin, Request
@@ -118,8 +120,15 @@ def _resume(side, arch, prefix, tokens_b):
     """Request A (the prefix) runs and retires with its pages registered;
     request B resumes from them.  Returns (B's tokens, cached length,
     tokens prefilled for B, pool)."""
-    flags = dict(has_full_attn=arch != SWA,   # danube: rings alone
-                 has_linear=arch != GQA)        # kimi, zamba2: linear state
+    # as the deployment's region cache: block matches where a block has
+    # seq pages (not danube's rings alone, nor xLSTM), a state snapshot
+    # where one has rings or linear state (not mistral-nemo)
+    cfg = _setup(arch)[1]
+    lay = tpaged.paged_layout(cfg, CAPACITY, PAGE, 1)
+    flags = dict(has_full_attn=lay.seq_cols > 0,
+                 has_linear=lay.ring_cols > 0 or any(
+                     not isinstance(b.mixer, AttentionSpec)
+                     for g in cfg.groups for b in g.blocks))
     pool = side[5](SLOTS * CAPACITY // PAGE, PAGE, 1)
     cache = side[6](pool, 0, 1, **flags)
     peng, dec, sched = _scheduler(side, paged=True, pool=pool, cache=cache)

@@ -4,8 +4,9 @@ reference's ``tests/test_spec_decode.py``:
 
   * through ``RegionScheduler`` (slot churn, a chunked prompt, budgets
     ending inside a block), ``spec_k=2`` streams equal the plain greedy
-    streams on kimi-linear-1t, mistral-nemo-12b, zamba2-1.2b and
-    h2o-danube-1.8b (sliding-window rings), dense and paged, and ``spec_k=0`` is the plain path (no speculative buffers);
+    streams on kimi-linear-1t, mistral-nemo-12b, zamba2-1.2b,
+    h2o-danube-1.8b (sliding-window rings) and xlstm-350m (sLSTM's
+    nested state), dense and paged, and ``spec_k=0`` is the plain path (no speculative buffers);
   * the scan verify is bitwise q ``decode_step``s; the parallel verify is
     within 1e-5 of them, with the same argmax;
   * drafting the model's own continuation accepts in full, a wrong draft
@@ -42,7 +43,7 @@ torch.set_num_threads(1)
 SLOTS, CAPACITY, BLOCK, MAX_BUCKET, PAGE = 4, 384, 8, 64, 16
 SPEC_K = 2
 ARCHS = ["kimi-linear-1t", "mistral-nemo-12b", "zamba2-1.2b",
-         "h2o-danube-1.8b"]
+         "h2o-danube-1.8b", "xlstm-350m"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -226,8 +227,9 @@ def test_acceptance_and_rollback(arch, accept):
                         else:
                             torch.testing.assert_close(*pair, atol=1e-5,
                                                        rtol=1e-5)
-                else:
-                    assert torch.equal(c, s), (key, name)
+                else:                       # sLSTM's state is nested
+                    for a, b in zip(tree_leaves(c), tree_leaves(s)):
+                        assert torch.equal(a, b), (key, name)
 
 
 def test_greedy_only_guard():

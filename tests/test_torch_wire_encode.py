@@ -5,8 +5,10 @@ int8 encode (``serving.engine.trim_request_cache`` then
 wire pytrees, with the reference's Pallas kernel in interpret mode and
 with its plain version, on the prefill caches of smoke ``kimi-linear-1t``
 (MLA ckv / kpe beside KDA state and conv), ``mistral-nemo-12b`` (GQA k /
-v) and ``zamba2-1.2b`` (the shared block's k / v beside Mamba2 state and
-conv), in bf16 and float32, for each request of a padded batch and of a
+v), ``zamba2-1.2b`` (the shared block's k / v beside Mamba2 state and
+conv), ``h2o-danube-1.8b`` (ring k / v) and ``xlstm-350m`` (no wire leaf:
+mLSTM's state and conv and sLSTM's nested state ship as they are), in
+bf16 and float32, for each request of a padded batch and of a
 chunked prefill.  The caches' structure comes from the port's prefill;
 their values are drawn from a numpy seed and reach both frameworks as
 the same bytes.
@@ -39,7 +41,7 @@ from repro_torch.serving.engine import PrefillEngine, trim_request_cache
 
 torch.set_num_threads(1)
 ARCHS = ("kimi-linear-1t", "mistral-nemo-12b", "zamba2-1.2b",
-         "h2o-danube-1.8b")
+         "h2o-danube-1.8b", "xlstm-350m")
 DTYPES = (torch.float32, torch.bfloat16)
 
 
