@@ -28,7 +28,10 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      shapes read in place from their padded caches, mistral-nemo's and
      zamba2's 12000-token k / v and kimi's 4096-token latents, against the
      plain encode and the trim, cast and kernel chain before it, with each
-     one's time and peak memory), after printing the ptxas registers and
+     one's time and peak memory); the shapes of llama4 (G 5), mixtral (G 6,
+     window 4096), phi-3 (head dim 96) and seamless (flash not causal with
+     Sq != Sk, decode over the fixed encoder length) in bf16 and float32,
+     and paged prefill at llama4's G 5; after printing the ptxas registers and
      spills of the bf16 decode core's, the delta core's, the GLA core's
      and the wire encode's instances;
      then each differentiable op (attention, gla and delta, with and
@@ -56,25 +59,27 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
          [KDA, KDA, KDA, MLA] unit and the MoE to 32 of its 352 experts, so
          the bf16 weights, ~17.8 GB, fit the card), with the dense KV
          layout and then with paged KV;
-       * ``mistral-nemo-12b`` at full width and depth (40 layers, ~24.5 GB
-         of bf16 weights), paged, where the later turn resumes from the
-         device pages of its cached prefix and prefills only its suffix;
+       * ``mistral-nemo-12b`` at full width, depth cut to ``MISTRAL_LAYERS``
+         (20 of 40 layers, ~13.6 GB of bf16 weights), paged, where the
+         later turn resumes from the device pages of its cached prefix and
+         prefills only its suffix;
        * ``zamba2-1.2b`` at full width and depth (32 Mamba2 layers and a
          shared attention + FFN block invoked 6 times, ~2.5 GB of bf16
          weights), dense and then paged, with a page-aligned 4992-token
          session whose later turn, paged, pins 4992 cached tokens (pool
          pages and the Mamba2 state snapshot) and prefills 600;
-       * ``h2o-danube-1.8b`` at full width and depth (24 layers of
-         sliding-window GQA, window 4096, head dim 80, ~3.6 GB of bf16
-         weights), dense (rings of 4096 rows a slot) and then paged (each
-         slot's private ring table of 256 pages), with the same 4992-token
-         session, past the window, whose later turn, paged, resumes from
-         the ring snapshot (4992 cached tokens) and prefills 600;
-       * ``xlstm-350m`` at full width and depth (12 [mLSTM, sLSTM] pairs,
-         ~0.38 GB of bf16 weights), dense and then paged (state slots
-         alone: it has no attention), over ten prompts of 64-640 tokens
-         in chunks of 256 with threshold 256 (the sLSTM is a plain
-         PyTorch step a token, host-bound: ``slstm_prefill_cost`` times
+       * ``h2o-danube-1.8b`` at full width, ``DANUBE_LAYERS`` (12 of 24)
+         layers of sliding-window GQA (window 4096, head dim 80, ~2.0 GB
+         of bf16 weights), dense (rings of 4096 rows a slot) and then
+         paged (each slot's private ring table of 256 pages), with the
+         same 4992-token session, past the window, whose later turn,
+         paged, resumes from the ring snapshot (4992 cached tokens) and
+         prefills 600;
+       * ``xlstm-350m`` at full width, ``XLSTM_PAIRS`` (6 of 12) [mLSTM,
+         sLSTM] pairs (~0.25 GB of bf16 weights), dense and then paged
+         (state slots alone: it has no attention), over ten prompts of
+         64-640 tokens in chunks of 256 with threshold 256 (the sLSTM is a
+         plain PyTorch step a token, host-bound: ``slstm_prefill_cost`` times
          it first), whose 512-token session's later turn, paged, resumes
          from the state snapshot and prefills 128; every leaf ships as it
          is (ratio 1, as the reference's wire); its greedy replay on both
@@ -82,6 +87,25 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
          prompts cut to 256 tokens, and its logit checks (float32 gated:
          the prefill within 2 %, the paged decode step equal to the dense
          one bit for bit);
+       * ``llama4-scout-17b-a16e`` and ``mixtral-8x22b`` at every
+         published width and expert, depth cut to 8 of 48 and 8 of 56
+         layers (~39.4 and ~40.9 GB of bf16 weights; ``moe_paths``),
+         dense and paged: llama4's later turn resumes from its device
+         prefix through the paged-prefill kernel, mixtral's 4992-token
+         session passes its window and its later turn resumes from the
+         ring snapshot and prefills 600; replays greedy and sampled, a
+         profiled paged decode block, speculative decode (bf16 tokens
+         gated equal to the plain greedy ones; mixtral adds a 4600-token
+         prompt whose rings wrap), bf16 logits recorded, and the float32
+         2 % gates on a 2-layer cut of each at the same widths;
+       * ``seamless-m4t-medium`` (encoder-decoder, 12 + 12 layers) and
+         ``phi-3-vision-4.2b`` (VLM, 32 layers) at full width and depth
+         through ``Model.prefill`` / ``decode_step`` (no engine takes
+         them, as none of the reference's does): seamless over 3000
+         frames and 500 / 350 tokens, phi-3 over 576 patches and 2000 /
+         1400 tokens, 16 greedy decode steps each; the decode-from-prefill
+         invariant (bf16 recorded, float32 gated at 5e-4) and the logits
+         (bf16 recorded, float32 gated at 2 %) (``encdec_vlm_paths``);
      random weights from a seed, each model's weights freed before the
      next one's load; on each path the first offloaded request's in-situ
      wire payload must equal the plain encode of its batch cache, byte for
@@ -112,9 +136,9 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      prefill batch of kimi in bf16; one prefill batch and one paged decode
      step of mistral-nemo-12b, of zamba2-1.2b and of h2o-danube-1.8b (its
      prefill of 5000 tokens, past the window), recorded in bf16 and held
-     in float32 (over their 38-40 layers bf16 rounding flips compound by
-     themselves: ~2 % on mistral-nemo, ~11 % on zamba2's prefill, on an
-     H100), and zamba2's bf16 prefill logits through the kernels no
+     in float32 (over their 20-38 layers bf16 rounding flips compound by
+     themselves: ~2 % on mistral-nemo at 40, ~11 % on zamba2's prefill, on
+     an H100), and zamba2's bf16 prefill logits through the kernels no
      further from the float32 plain logits than 1.5x the plain bf16
      logits' distance; time the MLA paged decode's whole-pool [ckv, kpe]
      concatenation against a decode step; and profile one paged decode
@@ -139,7 +163,8 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      must launch; then once with live feedback, its agreement recorded;
      then greedy and speculative (``--spec-k 2``), frozen, gated the same
      way, its replay priced with the live acceptance;
-  6. the training path on ``zamba2-1.2b`` at full width and depth: four
+  6. the training path on ``zamba2-1.2b`` at full width, 14 of its 38
+     layers (``ZAMBA2_TRAIN_UNITS``): four
      AdamW steps of 2 x 2048 tokens in two microbatches with remat
      through ``make_train_step`` (the Mamba2 mixers on the unmasked GLA
      kernel, row 6), one more profiled; then the loss and gradients of one
@@ -177,7 +202,7 @@ F32_FLOP_S = 67e12             # float32 outside the tensor cores
 
 # tolerances of the kernel-vs-plain checks
 TOL_BF16 = (2e-3, 2e-2)        # bf16 outputs (abs, rel)
-TOL_STATE = (1e-4, 1e-3)       # the delta rule's float32 state (abs, rel)
+TOL_STATE = (1e-4, 1e-3)       # float32 outputs and states (abs, rel)
 # gradients through a kernel's forward vs autograd through its plain
 # version (the same plain backward, float32): fraction of the largest
 TOL_GRAD = 1e-5
@@ -209,6 +234,18 @@ SAMPLING = dict(temperature=0.8, top_k=50)
 # (``slstm_prefill_cost``), which put that traffic's phase at ~460 s
 XLSTM_LENS = (64, 100, 200, 256, 300, 512, 180, 400, 640, 120)
 XLSTM_SESSION, XLSTM_EXT, XLSTM_CHUNK = 512, 128, 256
+# depth cuts of earlier paths, their widths kept, so that the phases stay
+# within 900 s on a loaded host with the MoE, encoder-decoder and VLM
+# phases (the phases read 794-849 s without those, 987 s with them and
+# only the first two cuts, on a loaded host; ``PERF.md``):
+# mistral-nemo-12b serves 20 of its 40 layers, h2o-danube-1.8b 12 of its
+# 24, xlstm-350m 6 of its 12 [mLSTM, sLSTM] pairs, and zamba2-1.2b trains
+# 2 of its 6 [5 x Mamba2, shared block] units and its 2-layer tail (14 of
+# 38 layers)
+MISTRAL_LAYERS = 20
+DANUBE_LAYERS = 12
+XLSTM_PAIRS = 6
+ZAMBA2_TRAIN_UNITS = 2
 # the launcher phase: zamba2-1.2b, the hybrid family the launcher serves at
 # full width and depth on one card, through three PD regions with
 # cross-validation against the simulator replay (``--calibration`` and
@@ -254,12 +291,28 @@ def _nbytes(*ts) -> int:
 # the decode kernels' check shapes (rows 2 and 8): lengths of the 8 rows,
 # and the group sizes the main paths run (tag, Hq, Hkv, Dk, Dv, scale):
 # kimi's absorbed MLA, mistral-nemo's GQA, h2o-danube's GQA at head dim 80
-# (its ring holds at most 4096 keys and takes no window) and zamba2's MHA
+# (its ring holds at most 4096 keys and takes no window) and zamba2's MHA;
+# then llama4's and mixtral's GQA (G 5 and 6: the stream's 8-head
+# instance) and phi-3's MHA at head dim 96, also checked in float32
 CHECK_LENGTHS = (16384, 12001, 9000, 5601, 3800, 1501, 701, 101)
+NEW_DECODE_GROUPS = (("GQA_G5", 40, 8, 128, 128, 128 ** -0.5),
+                     ("GQA_G6", 48, 8, 128, 128, 128 ** -0.5),
+                     ("MHA96", 32, 32, 96, 96, 96 ** -0.5))
 DECODE_GROUPS = (("MLA", 64, 1, 536, 472, 192 ** -0.5),
                  ("GQA", 32, 8, 128, 128, 128 ** -0.5),
                  ("GQA80", 32, 8, 80, 80, 80 ** -0.5),
-                 ("MHA", 32, 32, 64, 64, 64 ** -0.5))
+                 ("MHA", 32, 32, 64, 64, 64 ** -0.5)) + NEW_DECODE_GROUPS
+# the flash kernel's shapes on the paths of llama4 (GQA, G 5), mixtral
+# (G 6, window 4096, the logit checks' 5000-token prefill), phi-3 (MHA at
+# head dim 96 over 576 patches and 2000 tokens) and seamless (its
+# bidirectional encoder over 3000 frames, and 500 decoder queries over
+# those 3000 keys in a cross block): (tag, B, Hq, Hkv, Sq, Sk, D, causal,
+# window), each checked in bf16 and in float32
+NEW_FLASH_SHAPES = (("llama4_gqa_g5", 1, 40, 8, 4096, 4096, 128, True, 0),
+                    ("mixtral_swa_g6", 1, 48, 8, 5000, 5000, 128, True, 4096),
+                    ("phi3_mha_d96", 1, 32, 32, 2576, 2576, 96, True, 0),
+                    ("seamless_encoder", 2, 16, 16, 3000, 3000, 64, False, 0),
+                    ("seamless_cross", 2, 16, 16, 500, 3000, 64, False, 0))
 
 
 def _decode_case(torch, close, atol_needed, name, run, plain, q, k, v, lens,
@@ -925,6 +978,22 @@ def check_kernels(torch, dev):
             os_, os_ref, *TOL_BF16)
         needed.append(atol_needed(os_, os_ref))
         del qs, ks, vs, os_, os_ref
+    # llama4's, mixtral's, phi-3's and seamless's shapes, bf16 and float32
+    for tag, Bn, Hq, Hkv, Sq, Sk, D, causal, window in NEW_FLASH_SHAPES:
+        for dt, tol in ((bf, TOL_BF16), (torch.float32, TOL_STATE)):
+            qn = randn(Bn, Hq, Sq, D, dtype=dt)
+            kn, vn = randn(Bn, Hkv, Sk, D, dtype=dt), randn(Bn, Hkv, Sk, D,
+                                                            dtype=dt)
+            kw = dict(causal=causal, window=window)
+            on = flash_attention(qn, kn, vn, **kw)
+            torch.cuda.synchronize()
+            on_ref = flash_attention_ref(qn, kn, vn, **kw)
+            key = f"{tag}_{'bf16' if dt == bf else 'f32'}"
+            checked[key] = close(f"flash_attention ({key})", on, on_ref,
+                                 *tol)
+            if dt == bf:
+                needed.append(atol_needed(on, on_ref))
+            del qn, kn, vn, on, on_ref
     S = 2048
     pairs = S * (S + 1) // 2
     flops = 2 * H * pairs * (Dk + Dv)
@@ -946,7 +1015,11 @@ def check_kernels(torch, dev):
               "(1,32,4096,128) over k, v (1,8,4096|8192,128), q_offset 0 "
               "and 4096, and at h2o-danube's SWA q (1,32,Sq,80) over k, v "
               "(1,8,q_offset+Sq,80), window 4096: Sq 5000 at q_offset 0, "
-              "Sq 4096 at q_offset 4608 and 8192")
+              "Sq 4096 at q_offset 4608 and 8192; and, bf16 and float32, "
+              "at llama4's GQA (1,40|8,4096,128) causal, mixtral's "
+              "(1,48|8,5000,128) window 4096, phi-3's MHA (1,32,2576,96) "
+              "causal, seamless's encoder (2,16,3000,64) and cross "
+              "(2,16,500,64) over (2,16,3000,64), not causal")
 
     # decode (row 2) at the group sizes the main paths run: absorbed MLA
     # (Hq 64 over Hkv 1, Dk 536, Dv 472: the table's row), GQA (32 over 8
@@ -973,9 +1046,41 @@ def check_kernels(torch, dev):
             f"{Dv}) bf16{'' if Hkv == 1 else ' (transposed (B,S,Hkv,D) buffers)'}"
             f", lengths 16384..101")
         del qd, kd, vd
+    # a cross block's decode: seamless's 16 heads of 64 over the 3000
+    # encoder rows of both prompts, read in place from the (B, S_enc, Hkv,
+    # D) leaves, every row at the full length
+    enc = torch.full((2,), 3000, dtype=torch.int32, device=dev)
+    qd = randn(2, 16, 64)
+    kd, vd = (randn(2, 3000, 16, 64).transpose(1, 2) for _ in range(2))
+    shapes["CROSS64"] = _decode_case(
+        torch, close, atol_needed, "decode_attention (cross, enc_len 3000)",
+        lambda: decode_attention(qd, kd, vd, enc),
+        lambda: decode_attention_ref(qd, kd, vd, enc),
+        qd, kd, vd, enc, 64 ** -0.5, extra=())
+    shapes["CROSS64"]["shape"] = ("q (2,16,64) k, v (2,16,3000,64) bf16 "
+                                  "(transposed (B,S_enc,Hkv,D) leaves), "
+                                  "lengths 3000 x 2")
+    del qd, kd, vd
+    # the new groups and the cross decode in float32 (the SIMT core)
+    f32 = {}
+    cases = [(t, Hq, Hkv, Dk, Dv, sc, lens, S)
+             for t, Hq, Hkv, Dk, Dv, sc in NEW_DECODE_GROUPS]
+    cases.append(("CROSS64", 16, 16, 64, 64, 64 ** -0.5, enc, 3000))
+    for tag, Hq, Hkv, Dk, Dv, scale, ln, Sn in cases:
+        qd = randn(ln.shape[0], Hq, Dk, dtype=torch.float32)
+        kd = randn(ln.shape[0], Sn, Hkv, Dk, dtype=torch.float32)
+        vd = randn(ln.shape[0], Sn, Hkv, Dv, dtype=torch.float32)
+        kd, vd = kd.transpose(1, 2), vd.transpose(1, 2)
+        od = decode_attention(qd, kd, vd, ln, scale=scale)
+        torch.cuda.synchronize()
+        f32[tag] = close(f"decode_attention ({tag}, float32)", od,
+                         decode_attention_ref(qd, kd, vd, ln, scale=scale),
+                         *TOL_STATE)
+        del qd, kd, vd, od
     out["decode_attention"] = _decode_entry(
         "src/repro_torch/csrc/decode_attn.cu",
         "src/repro/kernels/decode_attn.py:94", shapes)
+    out["decode_attention"]["checked_f32"] = f32
 
     # delta, masked (row 3): KDA prefill, H = 56, dk = dv = 128, ragged
     # lengths, and kimi's prefill chunk
@@ -1194,9 +1299,24 @@ def check_paged_kernels(torch, dev, g, randn, close, atol_needed):
                 f"{T},{Dv}) bf16, tables ({B},{N}) permuted, lengths "
                 + ("16384..101" if ll is lens_l else f"{ll[0]} x {B}"))
         del kp, vp
+    # llama4's, mixtral's and phi-3's groups in float32 (the SIMT core)
+    f32 = {}
+    for tag, Hq, Hkv, Dk, Dv, scale in NEW_DECODE_GROUPS:
+        kp = randn(Hkv, P, T, Dk, dtype=torch.float32)
+        vp = randn(Hkv, P, T, Dv, dtype=torch.float32)
+        tables = _paged_tables(torch, dev, g, lens_l, T, N, P)
+        q = randn(B, Hq, Dk, dtype=torch.float32)
+        o = paged_decode_attention(q, kp, vp, tables, lens, scale=scale)
+        torch.cuda.synchronize()
+        f32[tag] = close(
+            f"paged_decode_attention ({tag}, float32)", o,
+            paged_decode_attention_ref(q, kp, vp, tables, lens, scale=scale),
+            *TOL_STATE)
+        del kp, vp, q, o
     out["paged_decode_attention"] = _decode_entry(
         "src/repro_torch/csrc/paged_decode_attn.cu",
         "src/repro/kernels/paged_decode_attn.py:112", shapes)
+    out["paged_decode_attention"]["checked_f32"] = f32
 
     # paged prefill: a 2048-query suffix chunk over 512 prior pages
     Hq, Hkv, D, C, Np = 32, 8, 128, 2048, 512
@@ -1227,6 +1347,24 @@ def check_paged_kernels(torch, dev, g, randn, close, atol_needed):
     errs.append(checked["mha_d64_zamba2"])
     needed.append(atol_needed(o, o_ref))
     del kz, vz, tz, qz, ksz, vsz, o, o_ref
+    # llama4's prefix-hit suffix chunk: GQA 40 over 8 heads of 128 (G 5)
+    # over the 312 pages of its 4992-token prefix, one 1024-token chunk,
+    # bf16 and float32
+    for dt, tol, tag in ((torch.bfloat16, TOL_BF16, "bf16"),
+                         (torch.float32, TOL_STATE, "f32")):
+        kl, vl = (randn(8, 1024, T, 128, dtype=dt) for _ in range(2))
+        tl = _paged_tables(torch, dev, g, [312 * T], T, 312, 1024)
+        ql, ksl, vsl = (randn(1, h, 1024, 128, dtype=dt)
+                        for h in (40, 8, 8))
+        o = paged_prefill_attention(ql, kl, vl, tl, ksl, vsl)
+        torch.cuda.synchronize()
+        o_ref = paged_prefill_attention_ref(ql, kl, vl, tl, ksl, vsl)
+        checked[f"gqa_g5_llama4_{tag}"] = close(
+            f"paged_prefill_attention (llama4 G 5, {tag})", o, o_ref, *tol)
+        errs.append(checked[f"gqa_g5_llama4_{tag}"])
+        if dt == torch.bfloat16:
+            needed.append(atol_needed(o, o_ref))
+        del kl, vl, tl, ql, ksl, vsl, o, o_ref
     ks, vs = randn(1, Hkv, C, D), randn(1, Hkv, C, D)
     prior = Np * T
     pairs = C * prior + C * (C + 1) // 2
@@ -1254,7 +1392,9 @@ def check_paged_kernels(torch, dev, g, randn, close, atol_needed):
               "(8,8193,16,128)) + suffix of 2048 keys, bf16, timed; checked "
               "also with a 4096-key suffix and at zamba2's q (1,32,1024,64) "
               "over 312 pages of 16 (pools (32,1024,16,64)) + 1024 suffix "
-              "keys; SDPA on the gathered cache with K/V repeated to 32 "
+              "keys, and at llama4's q (1,40,1024,128) over 312 pages "
+              "(pools (8,1024,16,128)) + 1024 suffix keys, bf16 and "
+              "float32; SDPA on the gathered cache with K/V repeated to 32 "
               "heads and a boolean mask")
     return out
 
@@ -1432,10 +1572,12 @@ def _logit_check(torch, what, got, want, gate=True):
             "argmax_agreement": same}
 
 
-def compare_logits(torch, dev, cfg, params, gate=True, keep=None, S=1024):
+def compare_logits(torch, dev, cfg, params, gate=True, keep=None, S=1024,
+                   extra=None):
     """Phase 5: one bucketed prefill batch of two rows, S and 700 S / 1024
     tokens, through the kernels and through the plain versions (both kept
-    in ``keep``, as float32, when given)."""
+    in ``keep``, as float32, when given).  ``extra``: the batch's frames
+    or patches (an encoder-decoder's, a VLM's)."""
     from repro_torch.models import Model
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -1443,10 +1585,10 @@ def compare_logits(torch, dev, cfg, params, gate=True, keep=None, S=1024):
                          device=dev)
     lens = torch.tensor([S, 700 * S // 1024], dtype=torch.int32,
                         device=dev)
+    batch = {"tokens": toks, "lengths": lens, **(extra or {})}
     with torch.no_grad():
-        got, _ = Model(cfg).prefill(params, {"tokens": toks, "lengths": lens})
-        want, _ = Model(cfg, use_kernels=False).prefill(
-            params, {"tokens": toks, "lengths": lens})
+        got, _ = Model(cfg).prefill(params, batch)
+        want, _ = Model(cfg, use_kernels=False).prefill(params, batch)
     if keep is not None:
         keep.update(kernels=got.float(), plain=want.float())
     return _logit_check(torch, f"{cfg.name} first-token", got, want, gate)
@@ -2011,9 +2153,10 @@ def decode_batch_variance(torch, dev):
     paged (pages of 16, a permuted table), at every group size the Hopper
     core serves: mistral-nemo's GQA (G 4, the stream), h2o-danube's (G 4
     at head dim 80), qwen2.5's (G 8, the stream's 8-head instance),
+    llama4's and mixtral's (G 5 and 6, the same instance with idle heads),
     granite's MQA (G 48, one 64-row tensor-core tile), kimi's absorbed MLA
-    (G 64) and zamba2's MHA (G 1); float32 at the GQA shape (the SIMT
-    core).  Gated: no row may move."""
+    (G 64), zamba2's MHA (G 1) and phi-3's at head dim 96; float32 at the
+    GQA shape (the SIMT core).  Gated: no row may move."""
     from repro_torch.kernels import ops
 
     g = torch.Generator(device=dev).manual_seed(11)
@@ -2024,6 +2167,9 @@ def decode_batch_variance(torch, dev):
             ("gqa_bf16", torch.bfloat16, 32, 8, 128, 128),
             ("gqa_d80_bf16", torch.bfloat16, 32, 8, 80, 80),
             ("g8_bf16", torch.bfloat16, 16, 2, 128, 128),
+            ("g5_bf16", torch.bfloat16, 40, 8, 128, 128),
+            ("g6_bf16", torch.bfloat16, 48, 8, 128, 128),
+            ("mha_d96_bf16", torch.bfloat16, 32, 32, 96, 96),
             ("mqa_g48_bf16", torch.bfloat16, 48, 1, 128, 128),
             ("mla_bf16", torch.bfloat16, 64, 1, 536, 472),
             ("mha_bf16", torch.bfloat16, 32, 32, 64, 64),
@@ -2262,6 +2408,32 @@ def profile_prefill(torch, dev, cfg, params):
         toks.astype(np.int32), np.array([L], np.int32)))}
 
 
+def depth_cut(cfg, repeats: int):
+    """``cfg`` (one group of repeated blocks) at every published width,
+    its group repeated ``repeats`` times."""
+    (g,) = cfg.groups
+    return dataclasses.replace(cfg, groups=(dataclasses.replace(
+        g, repeats=repeats),))
+
+
+def llama4_config(layers: int = 8):
+    """llama4-scout-17b-a16e at every published width (d_model 5120, GQA
+    40 / 8 heads of 128, all 16 experts of d_ff 8192 top-1 plus the shared
+    one, vocab 202048), ``layers`` of its 48 layers: 8 are 19.7 B params,
+    ~39.4 GB in bf16 (the whole model, 109 B, is ~218 GB)."""
+    from repro_torch.configs import get_config
+    return depth_cut(get_config("llama4-scout-17b-a16e"), layers)
+
+
+def mixtral_config(layers: int = 8):
+    """mixtral-8x22b at every published width (d_model 6144, GQA 48 / 8
+    heads of 128, window 4096, all 8 experts of d_ff 16384 top-2, vocab
+    32768), ``layers`` of its 56 layers: 8 are 20.4 B params, ~40.9 GB in
+    bf16 (the whole model, 141 B, is ~282 GB)."""
+    from repro_torch.configs import get_config
+    return depth_cut(get_config("mixtral-8x22b"), layers)
+
+
 def kimi_config():
     """kimi-linear-1t at its published widths, one [KDA, KDA, KDA, MLA]
     unit deep, 32 of its 352 experts per MoE FFN, bf16."""
@@ -2351,8 +2523,9 @@ def zamba2_paths(torch, dev, paths, launches):
 
 
 def danube_paths(torch, dev, paths, launches):
-    """h2o-danube-1.8b at full width and depth (24 sliding-window GQA
-    layers, window 4096, head dim 80), dense and then paged, with the
+    """h2o-danube-1.8b at full width, ``DANUBE_LAYERS`` of its 24
+    sliding-window GQA layers (window 4096, head dim 80), dense and then
+    paged, with the
     page-aligned 4992-token session past the window: on the paged path its
     later turn resumes from the ring snapshot and prefills only its
     600-token suffix.  Then the replay checks (greedy and sampled),
@@ -2362,7 +2535,7 @@ def danube_paths(torch, dev, paths, launches):
     step: bf16 recorded, the 2 % gate held in float32."""
     from repro_torch.configs import get_config
 
-    cfg = get_config("h2o-danube-1.8b")
+    cfg = depth_cut(get_config("h2o-danube-1.8b"), DANUBE_LAYERS)
     params = load_params(torch, dev, cfg, 3)
     for tag, paged, need in (
             ("danube_dense", False, ("flash_attention", "decode_attention",
@@ -2409,6 +2582,236 @@ def danube_paths(torch, dev, paths, launches):
                                                 S=5000)
     paths["danube_paged_step_f32"] = compare_paged_step(torch, dev, cfg,
                                                         params)
+
+
+def moe_paths(torch, dev, paths, launches, tag, cfg, seed):
+    """A MoE family on its card cut (``llama4_config`` / ``mixtral_config``,
+    bf16), served as ``danube_paths`` serves h2o-danube: the PrfaaS loop
+    dense then paged (``main_path``), each path's replay checks (greedy and
+    sampled), a profiled paged decode block (8 slots at 4000 tokens, as
+    kimi's), speculative decode on both layouts (the scan verify: a MoE
+    FFN takes no one-pass verify, so bf16 tokens are gated equal to the
+    plain greedy ones), and the logit checks in bf16, recorded.
+
+    Full GQA (llama4): the paged later turn resumes from the device pages
+    of its 5000-token session's page-aligned prefix and prefills only the
+    rest through the paged-prefill kernel, as mistral-nemo's.  A sliding
+    window (mixtral): the 4992-token session passes the window; its paged
+    later turn resumes from the ring snapshot and prefills only its
+    600-token suffix, and ``check_spec`` adds a 4600-token prompt whose
+    rings wrap and roll back.
+
+    The 2 % float32 gates of ``compare_logits`` and ``compare_paged_step``
+    would need ~79-82 GB in float32 at 8 layers; they run, after the bf16
+    tree is freed, on a further cut of 2 layers at the same widths with
+    every expert (~26 GB for llama4, ~22 GB for mixtral in float32)."""
+    from repro_torch.models.attention import is_ring
+
+    ring = is_ring(cfg.groups[0].blocks[0].mixer)
+    session = 4992 if ring else 5000
+    S = 5000 if ring else 1024
+    params = load_params(torch, dev, cfg, seed)
+    for layout, paged, need in (
+            ("dense", False, ("flash_attention", "decode_attention",
+                              "quantize_int8_fused")),
+            ("paged", True, ("flash_attention", "paged_decode_attention",
+                             "quantize_int8_fused")
+             + (() if ring else ("paged_prefill_attention",)))):
+        name = f"{tag}_{layout}"
+        summary, counts, dep = main_path(torch, dev, cfg, params,
+                                         paged=paged, session_len=session)
+        del dep
+        require_launched(counts, need, name)
+        if paged:
+            ext = summary["prompt_tokens"][-1]
+            pin = summary["device_pin_cached_len"]
+            if ring and pin != 4992:
+                fail(f"the later turn on {cfg.name} pinned {pin} cached "
+                     "tokens, not its 4992-token ring snapshot")
+            if not pin > 0:
+                fail(f"the later turn on {cfg.name} found no device prefix")
+            if summary["pd_tokens_prefilled"][-1] != ext - pin:
+                fail(f"the later turn on {cfg.name} prefilled "
+                     f"{summary['pd_tokens_prefilled'][-1]} tokens, not its "
+                     f"{ext - pin}-token suffix")
+        paths[name] = summary
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        print(f"{name}: {summary['wall_s']:.2f} s wall, peak "
+              f"{summary['peak_memory_gb']:.1f} GB, launches {counts}",
+              flush=True)
+        for sampled in (False, True):
+            key = f"{name}_replay" + ("_sampled" if sampled else "")
+            paths[key] = check_replay(torch, dev, cfg, params, paged=paged,
+                                      sampled=sampled)
+            print(f"{key}: {paths[key]}", flush=True)
+        gc_cuda(torch)
+    block = profile_decode_block(torch, dev, cfg, params)
+    paths[f"{tag}_decode_profile"] = block
+    print(f"{tag}_decode_profile: graph wall / busy "
+          f"{block['graph']['wall_ms']:.1f} / "
+          f"{block['graph']['device_busy_ms_profiled']:.1f} ms", flush=True)
+    for layout, res in check_spec(torch, dev, cfg, params, launches=launches,
+                                  gate_identity=(False, True),
+                                  long_prompt=4600 if ring else 0).items():
+        paths[f"{tag}_{layout}_spec"] = res
+    gc_cuda(torch)
+    paths[f"{tag}_logits_bf16"] = compare_logits(torch, dev, cfg, params,
+                                                 gate=False, S=S)
+    paths[f"{tag}_paged_step_bf16"] = compare_paged_step(
+        torch, dev, cfg, params, gate=False)
+    del params
+    gc_cuda(torch)
+    cut = dataclasses.replace(depth_cut(cfg, 2), dtype="float32")
+    params = load_params(torch, dev, cut, seed)
+    paths[f"{tag}_logits_f32_2_layers"] = compare_logits(torch, dev, cut,
+                                                         params, S=S)
+    paths[f"{tag}_paged_step_f32_2_layers"] = compare_paged_step(
+        torch, dev, cut, params)
+    del params
+    gc_cuda(torch)
+
+
+def decode_from_prefill(torch, dev, cfg, params, S, extra):
+    """The PrfaaS invariant of the reference's smoke test
+    (``tests/test_models_smoke.py::test_decode_matches_prefill``), through
+    the kernels: two rows of S tokens (after ``extra``'s frames or
+    patches) prefilled whole, and again without their last token, whose
+    cache, placed for decode, decodes that token.  Returns the largest
+    difference of the two log-softmaxes (the reference gates it at
+    5e-4)."""
+    from repro_torch.models import Model, prepare_decode_caches
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (2, S), generator=g, device=dev)
+    model = Model(cfg)
+    total0 = S - 1 + cfg.num_image_patches
+    with torch.no_grad():
+        full, _ = model.prefill(params, {"tokens": toks, **extra})
+        _, caches = model.prefill(params, {"tokens": toks[:, :-1], **extra})
+        dc = prepare_decode_caches(cfg, caches, total0 + 8)
+        del caches
+        got, _ = model.decode_step(params, toks[:, -1], dc, torch.full(
+            (2,), total0, dtype=torch.int32, device=dev))
+    if not (torch.isfinite(full).all() and torch.isfinite(got).all()):
+        fail(f"{cfg.name}: non-finite logits in the decode-from-prefill "
+             "check")
+    return float((torch.log_softmax(full, -1)
+                  - torch.log_softmax(got, -1)).abs().max())
+
+
+def encdec_vlm_run(torch, dev, cfg, params, lens, extra, steps=16):
+    """The encoder-decoder's and the VLM's whole surface, as the
+    reference's (no engine takes them): one prefill of two right-padded
+    rows of ``lens`` tokens (after ``extra``'s frames or patches) through
+    ``Model.prefill``, its caches placed by ``prepare_decode_caches``,
+    then ``steps`` greedy ``Model.decode_step``s, every kernel launch
+    counted from 0.  Returns (summary, launches)."""
+    from repro_torch.kernels import build
+    from repro_torch.models import Model, prepare_decode_caches
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    S, P = max(lens), cfg.num_image_patches
+    toks = torch.randint(0, cfg.vocab_size, (len(lens), S), generator=g,
+                         device=dev)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, caches = model.prefill(params, {"tokens": toks, "lengths": ln,
+                                                **extra})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dc = prepare_decode_caches(cfg, caches, -(-(S + P + steps) // 256)
+                                   * 256)
+        del caches
+        tok, out = logits.argmax(-1), []
+        for i in range(steps):
+            out.append(tok)
+            lg, dc = model.decode_step(params, tok, dc, ln + P + i)
+            tok = lg.argmax(-1)
+        out.append(tok)
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(build.LAUNCHES)
+    toks_out = torch.stack(out, 1).cpu()
+    if not (torch.isfinite(lg).all() and toks_out.min() >= 0
+            and toks_out.max() < cfg.vocab_size):
+        fail(f"{cfg.name}: non-finite logits or out-of-vocabulary tokens")
+    return {"arch": cfg.name, "layers": cfg.n_layers,
+            "encoder_layers": sum(g.repeats * len(g.blocks)
+                                  for g in cfg.encoder_groups or ()),
+            "lengths": list(lens), "prefix": P,
+            "frames": (list(extra["frames"].shape) if "frames" in extra
+                       else None),
+            "prefill_s": t1 - t0, "decode_steps": steps,
+            "decode_s": t2 - t1, "decode_ms_per_step": (t2 - t1) / steps
+            * 1e3, "tokens_sha1": hashlib.sha1(
+                toks_out.numpy().tobytes()).hexdigest(),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}, launches
+
+
+def encdec_vlm_paths(torch, dev, paths, launches):
+    """seamless-m4t-medium (12 + 12 layers, d_model 1024, 16 heads of 64,
+    vocab 256206; ~0.88 B params) and phi-3-vision-4.2b (32 layers, d_model
+    3072, 32 heads of 96; ~3.8 B params) at full width and depth, random
+    bf16 weights from a seed, through ``Model.prefill`` and
+    ``Model.decode_step`` (``encdec_vlm_run``): seamless over 3000 frames
+    and 500 / 350 decoder tokens (the flash kernel in the bidirectional
+    encoder and in the cross blocks, Sq != Sk; the decode kernel on the
+    self caches and over the fixed encoder length), phi-3 over 576 patches
+    and 2000 / 1400 tokens (head dim 96).  Then the decode-from-prefill
+    invariant (``decode_from_prefill``) and the kernels-vs-plain logits
+    (``compare_logits``): bf16 recorded; after the conversion to float32
+    the invariant gated at 5e-4 and the logits at 2 %."""
+    from repro_torch.configs import get_config
+
+    for tag, arch, seed, lens, S, make in (
+            ("seamless", "seamless-m4t-medium", 5, (500, 350), 500,
+             lambda cfg, g: {"frames": torch.randn(
+                 (2, 3000, cfg.encoder_input_dim), generator=g,
+                 device=dev)}),
+            ("phi3", "phi-3-vision-4.2b", 6, (2000, 1400), 2000,
+             lambda cfg, g: {"patches": torch.randn(
+                 (2, cfg.num_image_patches, cfg.d_model), generator=g,
+                 device=dev)})):
+        cfg = get_config(arch)
+        params = load_params(torch, dev, cfg, seed)
+        extra = make(cfg, torch.Generator(device=dev).manual_seed(seed))
+        summary, counts = encdec_vlm_run(torch, dev, cfg, params, lens, extra)
+        require_launched(counts, ("flash_attention", "decode_attention"),
+                         tag)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        print(f"{tag}: prefill {summary['prefill_s']:.2f} s, "
+              f"{summary['decode_ms_per_step']:.1f} ms a decode step, peak "
+              f"{summary['peak_memory_gb']:.1f} GB, launches {counts}",
+              flush=True)
+        summary["decode_from_prefill_bf16"] = decode_from_prefill(
+            torch, dev, cfg, params, S, extra)
+        summary["logits_bf16"] = compare_logits(torch, dev, cfg, params,
+                                                gate=False, S=S, extra=extra)
+        cfg, params = to_float32(cfg, params)
+        gc_cuda(torch)
+        err = decode_from_prefill(torch, dev, cfg, params, S, extra)
+        summary["decode_from_prefill_f32"] = err
+        if not err < 5e-4:
+            fail(f"{arch}: decoding the last token from the prefill cache "
+                 f"moves its log-softmax by {err:.3e} (float32; the "
+                 "reference's bound 5e-4)")
+        summary["logits_f32"] = compare_logits(torch, dev, cfg, params, S=S,
+                                               extra=extra)
+        paths[tag] = summary
+        print(f"{tag}: decode from prefill "
+              f"{summary['decode_from_prefill_bf16']:.3e} (bf16) / "
+              f"{err:.3e} (float32), logits {summary['logits_bf16']} / "
+              f"{summary['logits_f32']}", flush=True)
+        del params, extra
+        gc_cuda(torch)
 
 
 def slstm_prefill_cost(torch, dev, cfg, params, L=XLSTM_CHUNK):
@@ -2508,8 +2911,8 @@ def compare_paged_dense_step(torch, dev, cfg, params, lens=(1000, 700)):
 
 
 def xlstm_paths(torch, dev, paths, launches):
-    """xlstm-350m at full width and depth (24 layers: 12 [mLSTM, sLSTM]
-    pairs, d_model 1024, 4 heads of 256, ~0.38 GB of bf16 weights): the
+    """xlstm-350m at full width, ``XLSTM_PAIRS`` of its 12 [mLSTM, sLSTM]
+    pairs (d_model 1024, 4 heads of 256; ~0.25 GB of bf16 weights): the
     sLSTM's cost in a prefill first; then dense and paged (state slots
     alone: no attention, tables of zero columns) over ``XLSTM_LENS`` in
     chunks of ``XLSTM_CHUNK``, whose later turn, paged, resumes from the
@@ -2525,7 +2928,7 @@ def xlstm_paths(torch, dev, paths, launches):
     float32."""
     from repro_torch.configs import get_config
 
-    cfg = get_config("xlstm-350m")
+    cfg = depth_cut(get_config("xlstm-350m"), XLSTM_PAIRS)
     params = load_params(torch, dev, cfg, 4)
     torch.cuda.reset_peak_memory_stats()
     cost = slstm_prefill_cost(torch, dev, cfg, params)
@@ -2616,8 +3019,10 @@ def _grad_gap(torch, got, want):
 
 
 def zamba2_train(torch, dev):
-    """Phase 6: the training path on zamba2-1.2b at full width and depth
-    (38 layers, 1.34 B params, random bf16 weights from a seed): batch 2 x
+    """Phase 6: the training path on zamba2-1.2b at full width, depth cut
+    to ``ZAMBA2_TRAIN_UNITS`` of its 6 [5 x Mamba2, shared block] units and
+    its 2-layer tail (14 of 38 layers, 0.57 B params, random bf16 weights
+    from a seed): batch 2 x
     2048 tokens from ``SyntheticLM``, two microbatches, remat, AdamW (lr
     3e-4, warmup 2), four steps through ``make_train_step`` with every
     kernel launch counted from 0, then one more under ``torch.profiler``.
@@ -2638,6 +3043,8 @@ def zamba2_train(torch, dev):
                                       loss_and_grads, make_train_step)
 
     cfg = get_config("zamba2-1.2b")
+    cfg = dataclasses.replace(cfg, groups=(dataclasses.replace(
+        cfg.groups[0], repeats=ZAMBA2_TRAIN_UNITS),) + cfg.groups[1:])
     params = requires_grad(load_params(torch, dev, cfg, 3))
     tc = TrainConfig(microbatches=2, adamw=AdamWConfig(
         lr=3e-4, warmup_steps=2, total_steps=4))
@@ -2781,8 +3188,8 @@ def hybrid_train(torch, dev):
 # share of the bound and the error at each checked shape (rows 1 and 9),
 # the GQA shape's numbers (row 8), device time, each pass's and the
 # request shapes' numbers (row 4)
-_EXTRA_KEYS = ("tflops", "bound_share", "checked", "shapes", "device_ms",
-               "phases_ms", "requests")
+_EXTRA_KEYS = ("tflops", "bound_share", "checked", "checked_f32", "shapes",
+               "device_ms", "phases_ms", "requests")
 
 
 def gc_cuda(torch):
@@ -2934,8 +3341,9 @@ def main():
     torch.cuda.empty_cache()
     phase("kimi")
 
-    # mistral-nemo-12b at full width and depth, paged, with a prefix hit
-    cfg = get_config("mistral-nemo-12b")
+    # mistral-nemo-12b at full width, MISTRAL_LAYERS deep, paged, with a
+    # prefix hit
+    cfg = depth_cut(get_config("mistral-nemo-12b"), MISTRAL_LAYERS)
     params = load_params(torch, dev, cfg, 1)
     summary, counts, dep = main_path(torch, dev, cfg, params, paged=True)
     del dep
@@ -2969,11 +3377,11 @@ def main():
     print(f"mistral_paged: {summary['wall_s']:.2f} s wall, launches {counts}",
           flush=True)
     torch.cuda.empty_cache()
-    # in bf16, 40 layers turn the kernels' and plain versions' different
+    # in bf16, many layers turn the kernels' and plain versions' different
     # float32 summation orders into flips of bf16 roundings that compound
-    # layer over layer (2.1 % of the largest |logit| for the decode step on
-    # an H100): recorded, and the 2 % gate is held in float32, where the
-    # two differ by their summation order alone
+    # layer over layer (2.1 % of the largest |logit| for the decode step
+    # at 40 layers on an H100): recorded, and the 2 % gate is held in
+    # float32, where the two differ by their summation order alone
     paths["mistral_logits_bf16"] = compare_logits(torch, dev, cfg, params,
                                                   gate=False)
     paths["mistral_paged_step_bf16"] = compare_paged_step(
@@ -3002,7 +3410,16 @@ def main():
     gc_cuda(torch)
     phase("danube")
     xlstm_paths(torch, dev, paths, launches)
+    gc_cuda(torch)
     phase("xlstm")
+    # the MoE families on their card cuts (8 layers, every width and
+    # expert), then the encoder-decoder and the VLM at full depth
+    moe_paths(torch, dev, paths, launches, "llama4", llama4_config(), 7)
+    phase("llama4")
+    moe_paths(torch, dev, paths, launches, "mixtral", mixtral_config(), 8)
+    phase("mixtral")
+    encdec_vlm_paths(torch, dev, paths, launches)
+    phase("encdec_vlm")
 
     # the serving launcher end to end, calibrated, sampled, cross-validated
     runs, counts = launcher(torch, dev, ROOT / calib["path"])

@@ -1,7 +1,14 @@
-"""Architecture registry of the port: the architectures it can serve."""
+"""Architecture registry of the port: every architecture of the
+reference, under the reference's names.  The encoder-decoder
+(``seamless-m4t-medium``) and the VLM (``phi-3-vision-4.2b``) run through
+``Model.prefill`` / ``decode_step`` only, as in the reference; the others
+are served."""
 from repro_torch.configs import (granite_20b, h2o_danube_1_8b,
-                                 kimi_linear_1t, mistral_nemo_12b,
-                                 qwen2_5_3b, xlstm_350m, zamba2_1_2b)
+                                 kimi_linear_1t, llama4_scout,
+                                 mistral_nemo_12b, mixtral_8x22b,
+                                 phi3_vision_4_2b, qwen2_5_3b,
+                                 seamless_m4t_medium, xlstm_350m,
+                                 zamba2_1_2b)
 from repro_torch.configs.base import (AttentionSpec, BlockSpec, FFNSpec,
                                       GroupSpec, LinearSpec, ModelConfig,
                                       reduce_for_smoke)
@@ -14,6 +21,10 @@ ARCH_BUILDERS = {
     "qwen2.5-3b": qwen2_5_3b.build,
     "granite-20b": granite_20b.build,
     "xlstm-350m": xlstm_350m.build,
+    "llama4-scout-17b-a16e": llama4_scout.build,
+    "mixtral-8x22b": mixtral_8x22b.build,
+    "seamless-m4t-medium": seamless_m4t_medium.build,
+    "phi-3-vision-4.2b": phi3_vision_4_2b.build,
 }
 
 

@@ -40,6 +40,7 @@ from repro_torch.core import (PrfaasSimulator, SimConfig, SystemConfig,
                               ThroughputModel, Workload, split_even)
 from repro_torch.core.hardware import CHIPS, AnalyticProfile
 from repro_torch.models import Model
+from repro_torch.models.model import require_token_only
 from repro_torch.params import init_params
 from repro_torch.serving import CrossDCDeployment, DeploymentConfig, Request
 
@@ -227,6 +228,7 @@ def cross_validate(args, model_cfg, dep: CrossDCDeployment, trace,
 
 def run_serve(args) -> dict:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    require_token_only(cfg, "the serving launcher")
     k = args.pd_clusters
     shares = _parse_floats(args.pd_shares, k, "--pd-shares")
     if shares is not None:

@@ -1,8 +1,7 @@
 """Full-attention blocks: GQA / MQA / MHA and MLA (DeepSeek-V2-style
 latent KV).
 
-Counterpart of ``src/repro/models/attention.py`` for the kinds the port
-serves, self-attention only:
+Counterpart of ``src/repro/models/attention.py``:
 
   * GQA (``kind="full"``): prefill and prefill chunks attend through the
     flash kernel; dense decode through the flash-decode kernel, paged
@@ -20,12 +19,18 @@ serves, self-attention only:
   * MLA: prefill decompresses K/V into MHA form (flash kernel); decode runs
     the absorbed form, MQA over the latent cache (flash-decode kernel, or
     the paged one over the latent pools).
+  * An encoder's bidirectional self-attention (``causal=False``) and
+    cross-attention (``spec.is_cross``): keys and values from the
+    encoder's output, no RoPE, every key visible (flash kernel, Sq != Sk).
+    A cross block's decode writes nothing and attends over the whole
+    encoder length (flash-decode kernel, reading the prefill's
+    ``(B, S_enc, Hkv, D)`` leaves in place, as it reads the self caches).
+    The paged layout refuses cross-attention, as the reference's does.
 
 Caches keep the reference's layouts: GQA ``{"k", "v"}`` sequence-major
 ``(B, S, Hkv, D)``, MLA ``{"ckv": (B, S, R), "kpe": (B, S, Rp)}``; paged
 pools ``(Hkv, P, T, D)`` and ``(P, T, R)`` / ``(P, T, Rp)``.  Decode writes
-the new token's K/V into the given buffers in place.  Cross-attention
-raises ``NotImplementedError`` until its slice lands.
+the new token's K/V into the given buffers in place.
 """
 from __future__ import annotations
 
@@ -37,10 +42,11 @@ from repro_torch.models.layers import apply_rope, rms_norm
 
 
 def _check(spec: AttentionSpec):
-    if spec.kind not in ("full", "swa", "mla") or spec.is_cross:
-        raise NotImplementedError(f"attention kind {spec.kind!r} is not "
-                                  "ported yet (ported: self-attention GQA, "
-                                  "SWA and MLA)")
+    if spec.kind not in ("full", "swa", "mla") or (spec.is_cross
+                                                   and spec.kind == "mla"):
+        raise NotImplementedError(f"attention kind {spec.kind!r} "
+                                  f"(cross: {spec.is_cross}) is not ported "
+                                  "(ported: GQA, SWA and MLA, cross GQA)")
 
 
 def is_ring(spec) -> bool:
@@ -73,23 +79,31 @@ def _merge_heads(x):
 # ---------------------------------------------------------------- GQA
 
 
-def _gqa_qkv(p, x, spec: AttentionSpec, positions):
-    """Projected, rotated q (B,H,S,D) and k, v (B,Hkv,S,D)."""
+def _gqa_qkv(p, x, spec: AttentionSpec, positions, kv_in=None):
+    """Projected q (B,H,S,D) and k, v (B,Hkv,Sk,D) (from ``kv_in``, the
+    encoder's output, when given), rotated unless the block is a cross
+    one."""
     H, Hkv, D = spec.q_heads, spec.kv_heads, spec.head_dim
+    kv_in = x if kv_in is None else kv_in
     q = _split_heads(_lin(p["wq"], x), H, D)
-    k = _split_heads(_lin(p["wk"], x), Hkv, D)
-    v = _split_heads(_lin(p["wv"], x), Hkv, D)
-    if spec.rope:
+    k = _split_heads(_lin(p["wk"], kv_in), Hkv, D)
+    v = _split_heads(_lin(p["wv"], kv_in), Hkv, D)
+    if spec.rope and not spec.is_cross:
         q = apply_rope(q, positions, spec.rope_theta)
         k = apply_rope(k, positions, spec.rope_theta)
     return q, k, v
 
 
-def gqa_forward(p, x, spec: AttentionSpec, positions, *, use_kernels=True):
-    """Prefill GQA.  Returns (y, {"k", "v": (B, S, Hkv, D)})."""
+def gqa_forward(p, x, spec: AttentionSpec, positions, *, kv_source=None,
+                causal=True, use_kernels=True):
+    """Prefill GQA.  ``kv_source``: the encoder's output (B, S_enc, d), the
+    keys' and values' input of a cross block, which sees every key;
+    ``causal=False``: an encoder's bidirectional self-attention.  Returns
+    (y, {"k", "v": (B, Sk, Hkv, D)})."""
     _check(spec)
-    q, k, v = _gqa_qkv(p, x, spec, positions)
-    o = ops.attention(q, k, v, causal=True, window=_window(spec), q_offset=0,
+    q, k, v = _gqa_qkv(p, x, spec, positions, kv_source)
+    o = ops.attention(q, k, v, causal=causal and not spec.is_cross,
+                      window=_window(spec), q_offset=0,
                       use_kernel=use_kernels)
     y = _merge_heads(o) @ p["wo"]["w"]
     return y, {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}
@@ -123,6 +137,21 @@ def gqa_forward_chunk(p, x, spec: AttentionSpec, positions, cache, *,
                       q_offset=cache["k"].shape[1], use_kernel=use_kernels)
     y = _merge_heads(o) @ p["wo"]["w"]
     return y, {"k": k_full, "v": v_full}
+
+
+def cross_decode(p, x, spec: AttentionSpec, cache, *, use_kernels=True):
+    """A cross block's decode: the query over every row of the encoder's
+    K/V {"k", "v": (B, S_enc, Hkv, D)}, which it does not write.  The
+    kernel reads the leaves in place through a transpose.  Returns (y,
+    cache)."""
+    B = x.shape[0]
+    q = _split_heads(_lin(p["wq"], x), spec.q_heads, spec.head_dim)
+    enc_len = torch.full((B,), cache["k"].shape[1], dtype=torch.int32,
+                         device=x.device)
+    o = ops.decode_attention(q[:, :, 0], cache["k"].transpose(1, 2),
+                             cache["v"].transpose(1, 2), enc_len,
+                             use_kernel=use_kernels)
+    return _merge_heads(o[:, :, None]) @ p["wo"]["w"], cache
 
 
 def gqa_decode(p, x, spec: AttentionSpec, cache, lengths, *,
@@ -467,14 +496,17 @@ def ring_restore(cache, saved, accept, paged: bool):
 
 
 def attention_forward(p, x, spec: AttentionSpec, positions, *,
-                      use_kernels=True):
+                      kv_source=None, causal=True, use_kernels=True):
     if spec.kind == "mla":
         return mla_forward(p, x, spec, positions, use_kernels=use_kernels)
-    return gqa_forward(p, x, spec, positions, use_kernels=use_kernels)
+    return gqa_forward(p, x, spec, positions, kv_source=kv_source,
+                       causal=causal, use_kernels=use_kernels)
 
 
 def attention_forward_chunk(p, x, spec: AttentionSpec, positions, cache, *,
                             use_kernels=True):
+    if spec.is_cross:
+        raise ValueError("chunked prefill does not support cross-attention")
     if spec.kind == "mla":
         return mla_forward_chunk(p, x, spec, positions, cache,
                                  use_kernels=use_kernels)
@@ -491,6 +523,8 @@ def attention_decode(p, x, spec: AttentionSpec, cache, lengths, *,
 
 def attention_decode_paged(p, x, spec: AttentionSpec, cache, lengths, tables,
                            *, page_tokens, capacity, use_kernels=True):
+    if spec.is_cross:
+        raise ValueError("paged decode does not support cross-attention")
     fn = mla_decode_paged if spec.kind == "mla" else gqa_decode_paged
     return fn(p, x, spec, cache, lengths, tables, page_tokens=page_tokens,
               capacity=capacity, use_kernels=use_kernels)

@@ -20,11 +20,22 @@ block tables.
 
 The serving path's MoE is always the exact dropless form (the reference's
 inference default): a sorted loop over experts in prefill, every expert at
-once in decode, where it must not sync the host.  Architectures whose blocks the port does not serve
-yet (encoders, image prefixes, cross-attention, the GLA mixer kind)
-raise ``NotImplementedError`` at construction.  Training (``train_loss``) builds no caches; it runs dense
-and FFN-less blocks, and raises ``NotImplementedError`` on a MoE block
-(capacity MoE and its aux loss are ROADMAP A10).
+once in decode, where it must not sync the host.  A mixer kind the port
+does not have (the GLA mixer kind) raises ``NotImplementedError`` at
+construction.
+
+An encoder-decoder (``cfg.encoder_groups``: ``batch["frames"]`` through
+``enc_proj``, sinusoidal positions, the encoder's bidirectional groups and
+``enc_norm``; decoder blocks with a cross-attention sub-block, caches
+``{"self", "cross"}``, sinusoidal positions on the decoder's tokens) and a
+VLM (``cfg.num_image_patches``: ``batch["patches"]`` through
+``patch_proj``, prepended to the tokens) run through :meth:`prefill` and
+:meth:`decode_step`, the reference's whole surface for them; the chunked
+prefill and the speculative verify refuse them, as the paged layout and the
+serving engines do.  Training (``train_loss``) builds no caches; it runs
+dense and FFN-less decoder-only blocks, and raises ``NotImplementedError``
+on a MoE block, an encoder or an image prefix (capacity MoE, its aux loss
+and the encoder's backward are ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -45,19 +56,41 @@ def torch_dtype(cfg: ModelConfig):
 
 
 def _check_supported(cfg: ModelConfig):
-    if cfg.encoder_groups is not None or cfg.num_image_patches:
-        raise NotImplementedError("encoder / image-prefix models are not "
-                                  "ported yet")
-    for g in cfg.groups:
+    for g in cfg.groups + (cfg.encoder_groups or ()):
         for b in g.blocks:
-            if b.cross is not None:
-                raise NotImplementedError("cross-attention blocks are not "
-                                          "ported yet")
             m = b.mixer
             if isinstance(m, AttentionSpec):
                 attn_mod._check(m)
             else:
                 lin_mod._check(m)
+            if b.cross is not None:
+                attn_mod._check(b.cross)
+
+
+def token_only(cfg: ModelConfig) -> bool:
+    """A decoder-only model of tokens alone: no encoder, no image prefix.
+    The serving engines, the paged layout, the chunked prefill and the
+    speculative verify take only these, as the reference's do."""
+    return cfg.encoder_groups is None and not cfg.num_image_patches
+
+
+def require_token_only(cfg: ModelConfig, what: str):
+    if not token_only(cfg):
+        raise ValueError(f"{what} supports decoder-only token models (no "
+                         f"encoder / image prefix); {cfg.name} runs through "
+                         "Model.prefill and Model.decode_step only")
+
+
+def sinusoidal_positions(positions, d_model: int):
+    """positions (B, S) -> (B, S, d_model) float32 [sin | cos] embedding
+    (the reference's ``sinusoidal_positions``)."""
+    half = d_model // 2
+    dev = positions.device
+    freq = torch.exp(-torch.log(torch.full((), 10000.0, device=dev))
+                     * torch.arange(half, dtype=torch.float32, device=dev)
+                     / half)
+    ang = positions.float()[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def _rep(tree, r: int):
@@ -160,16 +193,19 @@ class Model:
         return x
 
     def _apply_block(self, spec: BlockSpec, p, x, positions, lengths,
-                     cache=None):
+                     cache=None, *, causal=True, enc_out=None):
         """Full-sequence block (``cache`` given: a chunk continuing from the
-        prior chunks' cache).  Returns (x, cache)."""
+        prior chunks' cache; ``causal=False``: an encoder block; a block
+        with a cross sub-block attends over ``enc_out`` after its mixer and
+        caches ``{"self", "cross"}``).  Returns (x, cache)."""
         h = rms_norm(x, p["ln1"], self.cfg.norm_eps)
         m = spec.mixer
         kw = dict(use_kernels=self.use_kernels)
         if isinstance(m, AttentionSpec):
             if cache is None:
                 y, c = attn_mod.attention_forward(p["mixer"], h, m,
-                                                  positions, **kw)
+                                                  positions, causal=causal,
+                                                  **kw)
             else:
                 y, c = attn_mod.attention_forward_chunk(p["mixer"], h, m,
                                                         positions, cache,
@@ -180,25 +216,46 @@ class Model:
                 initial_state=None if cache is None else cache["state"],
                 conv_state=None if cache is None else cache.get("conv"),
                 lengths=lengths, **kw)
-        return self._ffn(spec, p, x + y), c
+        x = x + y
+        if spec.cross is not None:
+            h = rms_norm(x, p["ln_cross"], self.cfg.norm_eps)
+            y, cc = attn_mod.attention_forward(p["cross"], h, spec.cross,
+                                               positions, kv_source=enc_out,
+                                               **kw)
+            x = x + y
+            c = {"self": c, "cross": cc}
+        return self._ffn(spec, p, x), c
 
     def _decode_block(self, spec: BlockSpec, p, x, cache, lengths,
                       tables=None, page_tokens=None, capacity=None):
         h = rms_norm(x, p["ln1"], self.cfg.norm_eps)
         m = spec.mixer
+        own = cache["self"] if spec.cross is not None else cache
         if isinstance(m, AttentionSpec) and tables is not None:
+            if spec.cross is not None:
+                raise ValueError("paged decode does not support "
+                                 "cross-attention blocks")
             y, c = attn_mod.attention_decode_paged(
-                p["mixer"], h, m, cache, lengths, tables,
+                p["mixer"], h, m, own, lengths, tables,
                 page_tokens=page_tokens, capacity=capacity,
                 use_kernels=self.use_kernels)
         elif isinstance(m, AttentionSpec):
-            y, c = attn_mod.attention_decode(p["mixer"], h, m, cache, lengths,
+            y, c = attn_mod.attention_decode(p["mixer"], h, m, own, lengths,
                                              use_kernels=self.use_kernels)
         else:
-            y, c = lin_mod.linear_decode(p["mixer"], h, m, cache)
-        return self._ffn(spec, p, x + y, decode=True), c
+            y, c = lin_mod.linear_decode(p["mixer"], h, m, own)
+        x = x + y
+        if spec.cross is not None:
+            h = rms_norm(x, p["ln_cross"], self.cfg.norm_eps)
+            y, _ = attn_mod.cross_decode(p["cross"], h, spec.cross,
+                                         cache["cross"],
+                                         use_kernels=self.use_kernels)
+            x = x + y
+            c = {"self": c, "cross": cache["cross"]}
+        return self._ffn(spec, p, x, decode=True), c
 
-    def _run_groups(self, params, x, positions, lengths, caches=None):
+    def _run_groups(self, params, x, positions, lengths, caches=None,
+                    enc_out=None):
         """Every group's repeats in order.  Returns (x, stacked caches)."""
         out = []
         for gi, (g, gp) in enumerate(zip(self.cfg.groups, params["groups"])):
@@ -211,16 +268,18 @@ class Model:
                     key = f"b{bi}"
                     x, rc[key] = self._apply_block(
                         b, pr[key], x, positions, lengths,
-                        None if cr is None else cr[key])
+                        None if cr is None else cr[key], enc_out=enc_out)
                 reps.append(rc)
             out.append(_stack_reps(reps, None if caches is None
                                    else caches[gi]))
         return x, out
 
-    def _train_groups(self, params, x, positions):
-        """Every group's repeats in order, building no caches; each repeat
-        under ``checkpoint`` with ``remat``."""
-        for g, gp in zip(self.cfg.groups, params["groups"]):
+    def _train_groups(self, params_groups, x, positions, groups=None,
+                      causal=True):
+        """Every group's repeats in order (``groups``: the decoder's unless
+        given), building no caches; each repeat under ``checkpoint`` with
+        ``remat``.  The encoder runs through it too (``causal=False``)."""
+        for g, gp in zip(groups or self.cfg.groups, params_groups):
             reps = (_unbind_reps(gp["stacked"], g.repeats) if gp["stacked"]
                     else [{}] * g.repeats)
 
@@ -228,7 +287,8 @@ class Model:
                 for bi, b in enumerate(_g.blocks):
                     key = f"b{bi}"
                     p = _gp["shared"][key] if b.shared else pr[key]
-                    x, _ = self._apply_block(b, p, x, positions, None)
+                    x, _ = self._apply_block(b, p, x, positions, None,
+                                             causal=causal)
                 return x
 
             for pr in reps:
@@ -253,13 +313,17 @@ class Model:
             raise NotImplementedError("training a MoE block (capacity MoE "
                                       "and its aux loss) is not ported yet "
                                       "(ROADMAP A10)")
+        if not token_only(cfg):
+            raise NotImplementedError("training an encoder or an image "
+                                      "prefix is not ported yet (ROADMAP "
+                                      "A10)")
         tokens = torch.as_tensor(batch["tokens"]).to(
             params["embed"].device).long()
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         B, S = inputs.shape
         x = params["embed"][inputs]
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        x = self._train_groups(params, x, positions)
+        x = self._train_groups(params["groups"], x, positions)
         loss = self._chunked_ce(params, x, labels)
         return loss, {"ce": loss, "aux": torch.zeros(
             (), dtype=torch.float32, device=x.device)}
@@ -288,18 +352,57 @@ class Model:
                 labels[:, c0:c0 + C], valid[c0:c0 + C], use_reentrant=False)
         return -total / (B * S)
 
-    def prefill(self, params, batch):
-        """batch: {"tokens": (B, S) int, "lengths": (B,) optional}.
-        Returns (last-token logits (B, V) float32, caches).  With
-        ``lengths`` the logits are taken at each row's ``lengths - 1`` and
-        linear-mixer states stop at each row's length, so a right-padded
-        batch gives exactly its unpadded results."""
-        tokens = batch["tokens"]
-        lengths = batch.get("lengths")
-        B, S = tokens.shape
-        x = params["embed"][tokens]
+    def _encode(self, params, frames):
+        """The encoder's output (B, S_enc, d) of ``frames`` (B, S_enc,
+        encoder_input_dim): ``enc_proj``, sinusoidal positions, the
+        bidirectional encoder groups, ``enc_norm``."""
+        cfg = self.cfg
+        x = frames
+        if cfg.encoder_input_dim:
+            x = x.to(torch_dtype(cfg)) @ params["enc_proj"]["w"]
+        B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        x, caches = self._run_groups(params, x, positions, lengths)
+        x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
+        x = self._train_groups(params["enc_groups"], x, positions,
+                               groups=cfg.encoder_groups, causal=False)
+        return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+    def _decoder_input(self, params, batch):
+        """(x (B, S, d), positions, n_prefix): the tokens' embeddings, after
+        the projected image patches of a VLM (``n_prefix`` of them), plus
+        sinusoidal positions in an encoder-decoder's decoder."""
+        cfg = self.cfg
+        x = params["embed"][batch["tokens"]]
+        n_prefix = 0
+        if cfg.num_image_patches:
+            patches = (batch["patches"].to(device=x.device, dtype=x.dtype)
+                       @ params["patch_proj"]["w"])
+            x = torch.cat([patches, x], dim=1)
+            n_prefix = patches.shape[1]
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        if cfg.encoder_groups is not None:
+            x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
+        return x, positions, n_prefix
+
+    def prefill(self, params, batch):
+        """batch: {"tokens": (B, S) int, "lengths": (B,) optional}, with
+        "frames" (B, S_enc, encoder_input_dim) for an encoder-decoder and
+        "patches" (B, P, d) for a VLM.  Returns (last-token logits (B, V)
+        float32, caches).  With ``lengths`` (token counts; a VLM's patches
+        come before them) the logits are taken at each row's last token
+        and linear-mixer states stop at each row's length, so a
+        right-padded batch gives exactly its unpadded results."""
+        x, positions, n_prefix = self._decoder_input(params, batch)
+        lengths = batch.get("lengths")
+        if lengths is not None and n_prefix:
+            lengths = lengths + n_prefix
+        enc_out = None
+        if self.cfg.encoder_groups is not None:
+            enc_out = self._encode(params, batch["frames"].to(x.device))
+        x, caches = self._run_groups(params, x, positions, lengths,
+                                     enc_out=enc_out)
+        B = x.shape[0]
         if lengths is not None:
             x_last = x[torch.arange(B, device=x.device),
                        lengths.to(x.device).long() - 1][:, None]
@@ -312,6 +415,7 @@ class Model:
         "positions": (B, C) absolute, "lengths": (B,) valid tokens within
         this chunk}.  ``caches=None`` starts the prefill.  Returns (hidden
         (B, C, d) before the final norm, caches)."""
+        require_token_only(self.cfg, "chunked prefill")
         x = params["embed"][batch["tokens"]]
         positions = batch["positions"].long()
         lengths = batch.get("lengths")
@@ -336,9 +440,15 @@ class Model:
         ``tables``: paged-KV block tables ``{"seq": (B, capacity / T)
         int32}`` on the device; ``caches`` then holds page-pool leaves
         (``models/paged.py``) and ``page_tokens`` / ``capacity`` give the
-        page size and the slot capacity."""
+        page size and the slot capacity.  An encoder-decoder's token takes
+        the sinusoidal embedding of its position ``lengths``; a VLM's
+        ``lengths`` count its image patches."""
+        x = params["embed"][tokens[:, None]]
+        if self.cfg.encoder_groups is not None:
+            x = x + sinusoidal_positions(lengths.to(x.device)[:, None],
+                                         self.cfg.d_model).to(x.dtype)
         x = self._each_block(
-            params, params["embed"][tokens[:, None]], caches,
+            params, x, caches,
             lambda b, p, x, cur: self._decode_block(
                 b, p, x, cur, lengths, tables, page_tokens, capacity))
         return self._logits(params, x)[:, 0], caches
@@ -419,6 +529,7 @@ class Model:
         a sliding-window block's ring rows the steps will write are saved
         first.  The other attention leaves need no rollback: a rejected row
         is rewritten before any kept token reads it."""
+        require_token_only(self.cfg, "speculative verify")
         q = seq.shape[1]
         if pending is None:
             pending = self.verify_buffers(caches, q, seq.shape[0],
@@ -479,8 +590,10 @@ class Model:
                 tree_map(rewind, leaves, _state_leaves(gc[key]))
         return caches
 
-    def init_cache(self, batch_size: int, capacity: int, device):
-        """Zeroed decode cache buffers of sequence capacity ``capacity``."""
+    def init_cache(self, batch_size: int, capacity: int, device,
+                   enc_len: int = 0):
+        """Zeroed decode cache buffers of sequence capacity ``capacity``
+        (a cross block's ``"cross"`` leaves hold ``enc_len`` rows)."""
         cfg = self.cfg
         dt = torch_dtype(cfg)
         B = batch_size
@@ -506,6 +619,12 @@ class Model:
                 else:
                     gc[f"b{bi}"] = zeros_of(lin_mod.state_shapes(m, B, dt),
                                             (R,), device)
+                if b.cross is not None:
+                    c = b.cross
+                    shape = (R, B, enc_len, c.kv_heads, c.head_dim)
+                    gc[f"b{bi}"] = {"self": gc[f"b{bi}"],
+                                    "cross": {"k": zeros(shape, dt),
+                                              "v": zeros(shape, dt)}}
             groups.append(gc)
         return {"groups": groups}
 
@@ -533,18 +652,29 @@ def prepare_decode_caches(cfg: ModelConfig, caches, capacity: int):
     """Place prefill-produced caches into decode buffers of ``capacity``:
     GQA K/V and MLA latents are zero-padded to capacity, a sliding-window
     block keeps its last ``window`` rows ring-placed at ``pos % window``
-    (where the window is below capacity), O(1) states pass through."""
+    (where the window is below capacity), O(1) states pass through.  A
+    cross block's ``"cross"`` leaves keep their encoder length, laid out
+    contiguous (R, B, S_enc, Hkv, D) once here, so that every decode step's
+    kernel reads them in place."""
+    def place(m, c):
+        if attn_mod.is_ring(m) and capacity > m.window:
+            return {k: attn_mod.ring_place(v, m.window, 2)
+                    for k, v in c.items()}
+        if isinstance(m, AttentionSpec):
+            return {k: _pad_seq(v, capacity) for k, v in c.items()}
+        return c
+
     out = []
     for g, gc in zip(cfg.groups, caches["groups"]):
         placed = {}
         for bi, b in enumerate(g.blocks):
             c = gc[f"b{bi}"]
-            m = b.mixer
-            if attn_mod.is_ring(m) and capacity > m.window:
-                c = {k: attn_mod.ring_place(v, m.window, 2)
-                     for k, v in c.items()}
-            elif isinstance(m, AttentionSpec):
-                c = {k: _pad_seq(v, capacity) for k, v in c.items()}
+            if b.cross is not None:
+                c = {"self": place(b.mixer, c["self"]),
+                     "cross": {k: v.contiguous()
+                               for k, v in c["cross"].items()}}
+            else:
+                c = place(b.mixer, c)
             placed[f"b{bi}"] = c
         out.append(placed)
     return {"groups": out}

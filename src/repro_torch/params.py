@@ -9,7 +9,7 @@ bit-exactly through their uint16 bit patterns.
 
 :func:`init_params` draws a tree of the same structure on any device from a
 ``torch.Generator``, with the reference's distributions
-(``src/repro/models/model.py:99-127`` and the ``init_*`` helpers it calls):
+(``src/repro/models/model.py:63-124`` and the ``init_*`` helpers it calls):
 normal weights scaled by fan-in^-0.5, embeddings at 0.02, norm scales at
 one, decay parameters at zero.  It does not reproduce the reference's
 random bits.
@@ -89,19 +89,24 @@ def _moe(dr, lead, d, spec: FFNSpec):
     return p
 
 
+def _gqa(dr, lead, d, m: AttentionSpec):
+    H, Hkv, D = m.q_heads, m.kv_heads, m.head_dim
+    mx = {"wq": _linear(dr, lead, d, H * D),
+          "wk": _linear(dr, lead, d, Hkv * D),
+          "wv": _linear(dr, lead, d, Hkv * D),
+          "wo": _linear(dr, lead, H * D, d)}
+    if m.qkv_bias:
+        for name in ("wq", "wk", "wv"):
+            mx[name]["b"] = dr.const(lead + (mx[name]["w"].shape[-1],),
+                                     0.0, dr.dtype)
+    return mx
+
+
 def _block(dr, lead, d, spec: BlockSpec):
     p = {"ln1": dr.const(lead + (d,), 1.0)}
     m = spec.mixer
     if isinstance(m, AttentionSpec) and m.kind != "mla":     # GQA
-        H, Hkv, D = m.q_heads, m.kv_heads, m.head_dim
-        mx = {"wq": _linear(dr, lead, d, H * D),
-              "wk": _linear(dr, lead, d, Hkv * D),
-              "wv": _linear(dr, lead, d, Hkv * D),
-              "wo": _linear(dr, lead, H * D, d)}
-        if m.qkv_bias:
-            for name in ("wq", "wk", "wv"):
-                mx[name]["b"] = dr.const(lead + (mx[name]["w"].shape[-1],),
-                                         0.0, dr.dtype)
+        mx = _gqa(dr, lead, d, m)
     elif isinstance(m, AttentionSpec):        # MLA
         H, D, R, Rp = m.q_heads, m.head_dim, m.mla_kv_rank, m.mla_rope_dim
         mx = {}
@@ -146,6 +151,9 @@ def _block(dr, lead, d, spec: BlockSpec):
             mx["conv_w"] = dr.normal(lead + (m.conv_kernel, C),
                                      m.conv_kernel ** -0.5)
     p["mixer"] = mx
+    if spec.cross is not None:
+        p["ln_cross"] = dr.const(lead + (d,), 1.0)
+        p["cross"] = _gqa(dr, lead, d, spec.cross)
     if spec.ffn.kind in ("dense", "moe"):
         p["ln2"] = dr.const(lead + (d,), 1.0)
         make = _ffn if spec.ffn.kind == "dense" else _moe
@@ -153,20 +161,32 @@ def _block(dr, lead, d, spec: BlockSpec):
     return p
 
 
+def _groups(dr, d, groups):
+    return [{"stacked": {f"b{bi}": _block(dr, (g.repeats,), d, b)
+                         for bi, b in enumerate(g.blocks) if not b.shared},
+             "shared": {f"b{bi}": _block(dr, (), d, b)
+                        for bi, b in enumerate(g.blocks) if b.shared}}
+            for g in groups]
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
-    """A seeded parameter tree for ``cfg`` on ``device`` (see module doc)."""
+    """A seeded parameter tree for ``cfg`` on ``device`` (see module doc):
+    an encoder-decoder's also holds ``enc_groups``, ``enc_norm`` and
+    ``enc_proj``, and cross blocks ``ln_cross`` / ``cross``; a VLM's
+    ``patch_proj``."""
     _check_supported(cfg)
     dr = _Draw(generator, device, torch_dtype(cfg))
     d, V = cfg.d_model, cfg.vocab_size
     p = {"embed": dr.normal((V, d), 0.02),
          "final_norm": dr.const((d,), 1.0),
-         "groups": [{"stacked": {f"b{bi}": _block(dr, (g.repeats,), d, b)
-                                 for bi, b in enumerate(g.blocks)
-                                 if not b.shared},
-                     "shared": {f"b{bi}": _block(dr, (), d, b)
-                                for bi, b in enumerate(g.blocks)
-                                if b.shared}}
-                    for g in cfg.groups]}
+         "groups": _groups(dr, d, cfg.groups)}
     if not cfg.tie_embeddings:
         p["unembed"] = dr.normal((d, V), 0.02)
+    if cfg.encoder_groups:
+        p["enc_groups"] = _groups(dr, d, cfg.encoder_groups)
+        p["enc_norm"] = dr.const((d,), 1.0)
+        if cfg.encoder_input_dim:
+            p["enc_proj"] = _linear(dr, (), cfg.encoder_input_dim, d)
+    if cfg.num_image_patches:
+        p["patch_proj"] = _linear(dr, (), d, d)
     return p

@@ -43,6 +43,7 @@ from repro_torch.core.blockpool import PREFIX, BlockPool
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.paged_prefill_attn import require_bf16_pages
 from repro_torch.models import Model, prepare_decode_caches
+from repro_torch.models.model import require_token_only
 from repro_torch.models.kvcache import quantize_cache_for_wire
 from repro_torch.models import paged as paged_mod
 from repro_torch.models.tree import tree_map
@@ -121,6 +122,7 @@ class PrefillEngine:
 
     def __init__(self, model: Model, params, *, min_bucket: int = 32,
                  max_bucket: Optional[int] = None):
+        require_token_only(model.cfg, "the serving engines")
         self.model = model
         self.params = params
         self.device = _device_of(params)
@@ -369,6 +371,7 @@ class DecodeEngine:
                  top_k: int = 0, seed: int = 0, paged: bool = False,
                  pool: Optional[BlockPool] = None, page_tokens: int = 16,
                  spec_k: int = 0, spec_ngram: int = 2, graphs: bool = True):
+        require_token_only(model.cfg, "the serving engines")
         self.spec_k = max(0, int(spec_k))
         self.spec_ngram = max(1, int(spec_ngram))
         if self.spec_k and temperature > 0.0:

@@ -71,6 +71,9 @@ def _randn(gen, shape, dtype, dev, scale=1.0):
     (1, 4, 4, 260, 260, 128, 128, 0, 48),     # window 48, the Dk 128 instance
     (1, 4, 2, 300, 300, 80, 80, 0, 0),        # Dk, Dv 80: TMA zero-pads
     (2, 2, 1, 150, 170, 48, 48, 20, 0),       # Dk, Dv 48
+    (1, 40, 8, 300, 300, 128, 128, 0, 0),     # llama4's GQA, G 5
+    (1, 48, 8, 300, 300, 128, 128, 0, 200),   # mixtral's SWA, G 6
+    (1, 8, 8, 300, 300, 96, 96, 0, 0),        # phi-3's MHA, head dim 96
 ])
 def test_flash_matches_plain(cuda, dtype, B, Hq, Hkv, Sq, Sk, Dk, Dv,
                              q_offset, window):
@@ -88,11 +91,35 @@ def test_flash_matches_plain(cuda, dtype, B, Hq, Hkv, Sq, Sk, Dk, Dv,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk,Hq,Hkv", [
+    (500, 3000, 16, 16),                      # seamless's cross-attention
+    (600, 600, 16, 16),                       # its bidirectional encoder
+    (130, 77, 4, 1),                          # more queries than keys
+])
+def test_flash_noncausal_matches_plain(cuda, dtype, Sq, Sk, Hq, Hkv):
+    """The flash kernel at ``causal=False`` with Sq != Sk, head dim 64: an
+    encoder's self-attention and a cross block over the encoder's keys."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = _randn(g, (2, Hq, Sq, 64), dtype, cuda)
+    k = _randn(g, (2, Hkv, Sk, 64), dtype, cuda)
+    v = _randn(g, (2, Hkv, Sk, 64), dtype, cuda)
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, causal=False)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Hq,Hkv,S,Dk,Dv,window", [
     (3, 4, 1, 100, 48, 32, 0),
     (2, 64, 1, 1000, 536, 472, 0),
     (2, 8, 2, 300, 64, 64, 50),
     (3, 32, 32, 300, 64, 64, 0),              # zamba2: one head per group
+    (3, 32, 32, 300, 96, 96, 0),              # phi-3: head dim 96
+    (3, 40, 8, 700, 128, 128, 0),             # llama4: G 5
+    (3, 48, 8, 700, 128, 128, 0),             # mixtral: G 6
 ])
 def test_decode_matches_plain(cuda, dtype, B, Hq, Hkv, S, Dk, Dv, window):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -779,6 +806,8 @@ def _paged_pools(g, dev, dtype, B, Hkv, T, N, Dk, Dv, lengths):
     (2, 4, 4, 8, 7, 32, 32, 20, (56, 23)),           # sliding window
     (4, 32, 8, 16, 40, 128, 128, 0, (640, 17, 300, 16)),   # GQA shape
     (3, 32, 32, 16, 20, 64, 64, 0, (320, 1, 77)),          # zamba2 MHA
+    (3, 40, 8, 16, 40, 128, 128, 0, (640, 17, 300)),       # llama4, G 5
+    (3, 48, 8, 16, 40, 128, 128, 0, (640, 17, 300)),       # mixtral, G 6
 ])
 def test_paged_decode_matches_plain(cuda, dtype, B, Hq, Hkv, T, N, Dk, Dv,
                                     window, lengths):
@@ -865,10 +894,12 @@ def test_decode_bf16_core_matches_plain(cuda, Hq, Hkv, Dk, Dv, window,
 
 # every group size the bf16 core serves: MLA (G 64, tensor cores), granite
 # MQA (G 48: one 64-row tile, 16 rows of padding), qwen2.5 GQA (G 8: the
-# stream's 8-head instance), mistral-nemo and h2o-danube GQA (G 4, head
-# dims 128 and 80), zamba2 MHA (G 1)
+# stream's 8-head instance), mixtral and llama4 GQA (G 6 and 5: the same
+# instance, its last heads idle), mistral-nemo and h2o-danube GQA (G 4,
+# head dims 128 and 80), zamba2 MHA (G 1)
 _INVARIANCE_GROUPS = [(64, 1, 536, 472), (48, 1, 128, 128),
-                      (16, 2, 128, 128), (32, 8, 128, 128), (32, 8, 80, 80),
+                      (16, 2, 128, 128), (48, 8, 128, 128),
+                      (40, 8, 128, 128), (32, 8, 128, 128), (32, 8, 80, 80),
                       (32, 32, 64, 64)]
 
 
@@ -1021,6 +1052,45 @@ def test_decode_reads_the_transposed_cache_in_place(cuda, dtype, Hq, Hkv, D):
         rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,D", [(16, 64), (32, 96)])
+def test_cross_decode_over_the_encoder_length_matches_plain(cuda, dtype, Hq,
+                                                            D):
+    """A cross block's decode (``attention.cross_decode``): every query
+    over all S_enc rows of the encoder's K / V, read in place from the
+    prefill's (B, S_enc, Hkv, D) leaves, equal to the kernel on contiguous
+    copies and close to the plain version."""
+    from repro_torch.configs.base import AttentionSpec
+    from repro_torch.models.attention import cross_decode
+
+    g = torch.Generator(device=cuda).manual_seed(18)
+    B, S_enc = 2, 3000
+    spec = AttentionSpec(kind="full", q_heads=Hq, kv_heads=Hq, head_dim=D,
+                         rope=False, is_cross=True)
+    p = {"wq": {"w": _randn(g, (1024, Hq * D), dtype, cuda, 1024 ** -0.5)},
+         "wo": {"w": _randn(g, (Hq * D, 1024), dtype, cuda, (Hq * D) ** -0.5)}}
+    x = _randn(g, (B, 1, 1024), dtype, cuda)
+    cache = {n: _randn(g, (B, S_enc, Hq, D), dtype, cuda) for n in "kv"}
+    build.reset_launches()
+    y, out = cross_decode(p, x, spec, cache)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["decode_attention"] == 1 and out is cache
+    q = (x @ p["wq"]["w"]).reshape(B, Hq, D)
+    k, v = cache["k"].transpose(1, 2), cache["v"].transpose(1, 2)
+    full = torch.full((B,), S_enc, dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, full)
+    assert torch.equal(got, ops.decode_attention(q, k.contiguous(),
+                                                 v.contiguous(), full))
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), decode_attention_ref(q, k, v, full).float(), atol=atol,
+        rtol=rtol)
+    # the block output: ``wo`` sums Hq * D of the attention's differences
+    want, _ = cross_decode(p, x, spec, cache, use_kernels=False)
+    torch.testing.assert_close(y.float(), want.float(), atol=atol * 10,
+                               rtol=rtol)
+
+
 @pytest.mark.parametrize("op", ["dense", "paged"])
 @pytest.mark.parametrize("fault", ["head_dim_36", "value_dim_44",
                                    "misaligned_q", "misaligned_k"])
@@ -1060,6 +1130,7 @@ def test_bf16_decode_core_refuses_what_it_cannot_take(cuda, op, fault):
     (1, 32, 32, 128, 16, 8, 200, 64),    # zamba2 MHA, head dim 64
     (1, 8, 2, 100, 16, 3, 150, 128),     # N * T = 48: a tile across both
     (2, 8, 8, 130, 8, 9, 130, 80),       # pages of 8, head dim 80
+    (1, 40, 8, 128, 16, 8, 200, 128),    # llama4's prefix hit, G 5
 ])
 def test_paged_prefill_matches_plain(cuda, dtype, B, Hq, Hkv, C, T, N, Ssuf,
                                      D):

@@ -6,7 +6,8 @@ case runs the same checks on smoke ``zamba2-1.2b`` (Mamba2 + a shared
 attention block; ``tests/test_torch_hybrid.py`` runs its chunks), and
 the ``qwen2.5`` (GQA 16/2, QKV bias, tied embeddings), ``granite`` (MQA,
 gelu) and ``danube`` (sliding window, ``tests/test_torch_swa.py``) cases
-on those smoke models.
+on those smoke models, and ``llama4`` (dropless MoE, top-1 with a shared
+expert) and ``mixtral`` (top-2 MoE under a sliding window).
 
 Tolerances: logits 1e-4 abs / 1e-4 rel; caches 3e-4 abs / 1e-3 rel (two
 stacked repeats of KDA + MLA + MoE blocks, float32 sums in other orders).
@@ -41,9 +42,10 @@ def _setup(q_rank, arch="kimi-linear-1t"):
 
 @pytest.fixture(params=[(0, "kimi-linear-1t"), (24, "kimi-linear-1t"),
                         (0, "zamba2-1.2b"), (0, "qwen2.5-3b"),
-                        (0, "granite-20b"), (0, "h2o-danube-1.8b")],
+                        (0, "granite-20b"), (0, "h2o-danube-1.8b"),
+                        (0, "llama4-scout-17b-a16e"), (0, "mixtral-8x22b")],
                 ids=["q_full", "q_rank", "zamba2", "qwen2.5", "granite",
-                     "danube"])
+                     "danube", "llama4", "mixtral"])
 def setup(request):
     return _setup(*request.param)
 

@@ -1,8 +1,9 @@
 """The port's paged KV against the reference's, on the CPU: the plain paged
 kernels, paged decode steps on smoke ``mistral-nemo-12b`` (GQA), smoke
 ``kimi-linear-1t`` (MLA), smoke ``zamba2-1.2b`` (Mamba2 + a shared MHA
-block) and smoke ``h2o-danube-1.8b`` (sliding-window rings through ring
-tables), paged admission and the page pool.
+block), smoke ``h2o-danube-1.8b`` (sliding-window rings through ring
+tables) and the MoE families (``llama4-scout-17b-a16e``, ``mixtral-8x22b``),
+paged admission and the page pool.
 
 Inputs are made with numpy from a seed and given to both frameworks; the
 reference's params are carried over with ``from_numpy_tree``.  The
@@ -50,6 +51,8 @@ LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 CACHE_TOL = dict(atol=3e-4, rtol=1e-3)
 GQA, MLA, HYBRID = "mistral-nemo-12b", "kimi-linear-1t", "zamba2-1.2b"
 SWA = "h2o-danube-1.8b"
+# the MoE families: GQA with a top-1 MoE, and a top-2 MoE under a window
+LLAMA4, MIXTRAL = "llama4-scout-17b-a16e", "mixtral-8x22b"
 PAGE = 16
 
 
@@ -167,7 +170,7 @@ def test_cpu_tensors_take_the_plain_paged_versions():
         paged_prefill_attention(qc, pool, pool, tables, ks, ks)
 
 
-@pytest.mark.parametrize("arch", [GQA, MLA, HYBRID, SWA])
+@pytest.mark.parametrize("arch", [GQA, MLA, HYBRID, SWA, LLAMA4, MIXTRAL])
 def test_paged_decode_steps_match_reference(arch):
     """``decode_step`` over random page pools through random tables (the
     last slot inactive on the sink page, one slot past its table; SWA: its
@@ -232,7 +235,7 @@ def _prefilled(arch, L, seed):
     return toks, int(first[0]), jeng.trim_request_cache(caches, 0, L)
 
 
-@pytest.mark.parametrize("arch", [GQA, MLA, HYBRID, SWA])
+@pytest.mark.parametrize("arch", [GQA, MLA, HYBRID, SWA, LLAMA4, MIXTRAL])
 def test_wire_admitted_pool_byte_identical(arch):
     """An int8 wire payload of the reference's, admitted by the port's
     paged engine (dequantized inside the page write), leaves pools

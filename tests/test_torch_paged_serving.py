@@ -48,6 +48,8 @@ from repro_torch.serving.api import PagePin, Request
 torch.set_num_threads(1)
 SLOTS, CAPACITY, BLOCK, MAX_BUCKET, PAGE = 4, 384, 8, 64, 16
 GQA, MLA, SWA = "mistral-nemo-12b", "kimi-linear-1t", "h2o-danube-1.8b"
+# the MoE families: GQA with a top-1 MoE, and a top-2 MoE under a window
+LLAMA4, MIXTRAL = "llama4-scout-17b-a16e", "mixtral-8x22b"
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,7 +100,7 @@ def _prompts(lens, seed):
     return [rng.integers(0, 256, (L,)).astype(np.int32) for L in lens]
 
 
-@pytest.mark.parametrize("arch", [GQA])
+@pytest.mark.parametrize("arch", [GQA, LLAMA4, MIXTRAL])
 def test_paged_tokens_match_dense_and_reference(arch):
     """Mixed lengths, more requests than slots, a chunked prompt past
     max_bucket: the port's paged tokens equal the reference's paged tokens
@@ -144,7 +146,7 @@ def _resume(side, arch, prefix, tokens_b):
             pool)
 
 
-@pytest.mark.parametrize("arch", [GQA])
+@pytest.mark.parametrize("arch", [GQA, LLAMA4])
 def test_prefix_hit_prefills_only_the_suffix(arch):
     """B shares a page-aligned 64-token prefix with a retired A and resumes
     from A's pool pages (GQA: through the paged-prefill path; MLA: gathered

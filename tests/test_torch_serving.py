@@ -7,8 +7,9 @@ smoke ``kimi-linear-1t`` (float32, the reference's params carried over):
   * ``PrefillEngine`` / ``ChunkedPrefill`` / ``DecodeEngine`` under the
     ``RegionScheduler`` emit the reference's greedy tokens, truncation
     flags included; and so on smoke ``qwen2.5-3b`` (GQA 16/2, QKV bias,
-    tied embeddings) and ``granite-20b`` (MQA, gelu), whose wire pytrees
-    are byte-identical too.
+    tied embeddings), ``granite-20b`` (MQA, gelu), ``llama4-scout-17b-a16e``
+    (top-1 MoE with a shared expert) and ``mixtral-8x22b`` (top-2 MoE,
+    sliding window), whose wire pytrees are byte-identical too.
 """
 import functools
 
@@ -112,10 +113,11 @@ def test_scheduler_tokens_match_reference():
     _scheduler_case("kimi-linear-1t")
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "granite-20b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "granite-20b",
+                                  "llama4-scout-17b-a16e", "mixtral-8x22b"])
 def test_dense_gqa_archs_match_reference(arch):
-    """The scheduler case and the wire pytree on the two registered dense
-    GQA / MQA architectures."""
+    """The scheduler case and the wire pytree on the registered GQA / MQA
+    architectures: the two dense ones and the two MoE ones."""
     _scheduler_case(arch)
     jcfg, tcfg, jparams, _ = _setup(arch)
     (toks,) = _prompts(tcfg, [37])

@@ -5,8 +5,10 @@ reference's ``tests/test_spec_decode.py``:
   * through ``RegionScheduler`` (slot churn, a chunked prompt, budgets
     ending inside a block), ``spec_k=2`` streams equal the plain greedy
     streams on kimi-linear-1t, mistral-nemo-12b, zamba2-1.2b,
-    h2o-danube-1.8b (sliding-window rings) and xlstm-350m (sLSTM's
-    nested state), dense and paged, and ``spec_k=0`` is the plain path (no speculative buffers);
+    h2o-danube-1.8b (sliding-window rings), xlstm-350m (sLSTM's nested
+    state), llama4-scout-17b-a16e and mixtral-8x22b (MoE FFNs: the scan
+    verify; mixtral's rings roll back), dense and paged, and ``spec_k=0``
+    is the plain path (no speculative buffers);
   * the scan verify is bitwise q ``decode_step``s; the parallel verify is
     within 1e-5 of them, with the same argmax;
   * drafting the model's own continuation accepts in full, a wrong draft
@@ -43,7 +45,8 @@ torch.set_num_threads(1)
 SLOTS, CAPACITY, BLOCK, MAX_BUCKET, PAGE = 4, 384, 8, 64, 16
 SPEC_K = 2
 ARCHS = ["kimi-linear-1t", "mistral-nemo-12b", "zamba2-1.2b",
-         "h2o-danube-1.8b", "xlstm-350m"]
+         "h2o-danube-1.8b", "xlstm-350m", "llama4-scout-17b-a16e",
+         "mixtral-8x22b"]
 
 
 @functools.lru_cache(maxsize=None)

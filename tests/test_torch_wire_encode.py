@@ -6,8 +6,10 @@ wire pytrees, with the reference's Pallas kernel in interpret mode and
 with its plain version, on the prefill caches of smoke ``kimi-linear-1t``
 (MLA ckv / kpe beside KDA state and conv), ``mistral-nemo-12b`` (GQA k /
 v), ``zamba2-1.2b`` (the shared block's k / v beside Mamba2 state and
-conv), ``h2o-danube-1.8b`` (ring k / v) and ``xlstm-350m`` (no wire leaf:
-mLSTM's state and conv and sLSTM's nested state ship as they are), in
+conv), ``h2o-danube-1.8b`` (ring k / v), ``xlstm-350m`` (no wire leaf:
+mLSTM's state and conv and sLSTM's nested state ship as they are),
+``llama4-scout-17b-a16e`` (GQA k / v beside a MoE) and ``mixtral-8x22b``
+(ring k / v beside a MoE), in
 bf16 and float32, for each request of a padded batch and of a
 chunked prefill.  The caches' structure comes from the port's prefill;
 their values are drawn from a numpy seed and reach both frameworks as
@@ -41,7 +43,8 @@ from repro_torch.serving.engine import PrefillEngine, trim_request_cache
 
 torch.set_num_threads(1)
 ARCHS = ("kimi-linear-1t", "mistral-nemo-12b", "zamba2-1.2b",
-         "h2o-danube-1.8b", "xlstm-350m")
+         "h2o-danube-1.8b", "xlstm-350m", "llama4-scout-17b-a16e",
+         "mixtral-8x22b")
 DTYPES = (torch.float32, torch.bfloat16)
 
 
