@@ -38,7 +38,9 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      without lengths) at the training paths' shapes and types: its kernel
      forward against the plain version's outputs, and its gradients
      against autograd through the plain version (the same plain backward
-     on both sides, so a check of the wiring);
+     on both sides, so a check of the wiring), mixtral's sliding window
+     at 8192 tokens among them; and ``swa_banded``'s float32 gradient
+     against the quadratic plain version's;
   3b. calibrate the card (``repro_torch.analysis.calibrate.sweep`` in
      bf16: a matmul and a streaming probe, then causal attention through
      the flash kernel plus the FFN's products at prefill lengths
@@ -175,7 +177,21 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
   7. the reference's KDA:MLA 3:1 training recipe at its 100m scale
      (``repro_torch.examples.train_100m``): 20 steps of 8 x 1024 tokens
      through ``TrainLoop`` with checkpoints in a temporary directory (the
-     KDA mixers on the unmasked delta kernel, row 5); its loss must fall.
+     KDA mixers on the unmasked delta kernel, row 5); its loss must fall;
+  8. ``train_more``: three AdamW steps each, remat, random bf16 weights
+     from a seed, of mixtral-8x22b (``MIXTRAL_TRAIN_LAYERS``, 1 of 56
+     layers, every expert; 1 x 8192 tokens: the capacity MoE and its aux
+     loss, the flash kernel's backward recompute through ``swa_banded``;
+     step 0 twice, the same bits), seamless-m4t-medium at full depth (2 x
+     1024 tokens over 2048 random frames; ``mea_attention``) and
+     phi-3-vision-4.2b (``PHI3_TRAIN_LAYERS``, 8 of 32; 2 x (576 random
+     patches + 1024 tokens)): finite losses and grad norms, a step-0 loss
+     within 1.0 of the random init's, probe leaves moved (the router and
+     an expert, ``enc_proj`` and an encoder layer, ``patch_proj``), flash
+     launched; mixtral's (2048 tokens) and seamless's (one row) float32
+     loss and grad norm through the kernels against the plain versions,
+     gated, with the routing decisions that differ; each run's aux,
+     dropped pairs and peak memory printed.
 
 Each phase's seconds are printed as it ends (``phase <name>: <s>``) and
 kept under ``phase_s`` in the summary.  The last lines are the main
@@ -246,6 +262,12 @@ MISTRAL_LAYERS = 20
 DANUBE_LAYERS = 12
 XLSTM_PAIRS = 6
 ZAMBA2_TRAIN_UNITS = 2
+# the train_more phase's cuts, every width and expert kept: mixtral-8x22b
+# trains 1 of its 56 layers (2.91 B params: bf16 params and grads and
+# AdamW's float32 moments and master, ~46.6 GB, fit the card) and
+# phi-3-vision-4.2b 8 of its 32
+MIXTRAL_TRAIN_LAYERS = 1
+PHI3_TRAIN_LAYERS = 8
 # the launcher phase: zamba2-1.2b, the hybrid family the launcher serves at
 # full width and depth on one card, through three PD regions with
 # cross-validation against the simulator replay (``--calibration`` and
@@ -1127,8 +1149,10 @@ def check_grads(torch, dev):
     2048, dk 64 / dv 128) in bf16, and ``zamba2_train_check`` both again in
     float32; ``hybrid_train`` runs flash in MLA form (4, 8, 1024, Dk 96 /
     Dv 64) and delta_chunked at (4, 8, 1024, 64) in float32 (a microbatch
-    of four rows).  The masked instances get the same shapes with ragged
-    lengths.
+    of four rows); ``train_more`` runs flash at mixtral's (1, 48, 8192,
+    128) over 8 KV heads with window 4096 in bf16, whose plain version and
+    backward recompute is ``swa_banded``.  The masked instances get the
+    same shapes with ragged lengths.
 
     * Forward: the kernel's outputs against the plain version's, within
       TOL_STATE in float32 and TOL_BF16 (the state TOL_STATE) in bf16,
@@ -1140,10 +1164,16 @@ def check_grads(torch, dev):
       version from the same inputs in the backward, so this checks only
       the wiring: the inputs saved, the upstream passed on, each gradient
       returned to its input.
+    * ``swa_banded``'s gradients, float32, against the quadratic plain
+      version's at mixtral's window (1, 12, 8192, 128) over 2 KV heads
+      (its 48 / 8 heads cut to fit the quadratic one's (8192, 8192)
+      scores), within TOL_GRAD of the largest: ``swa_vs_quadratic``.
 
     Returns {case: {"fwd_max_abs_err": {dtype: x}, "fwd_atol_needed":
-    {dtype: x}, "grad_rel_diff": x}}."""
+    {dtype: x}, "grad_rel_diff": x}, "swa_vs_quadratic": {...}}."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attn import flash_attention_ref
+    from repro_torch.models.chunked_attention import swa_banded
 
     g = torch.Generator(device=dev).manual_seed(5)
 
@@ -1168,7 +1198,7 @@ def check_grads(torch, dev):
     def lens(*n):
         return torch.tensor(n, dtype=torch.int32, device=dev)
 
-    # case: (op, float32 inputs, lengths, forward dtypes)
+    # case: (op, float32 inputs, lengths, forward dtypes[, op keywords])
     cases = {
         "attention_mha": ("attention", (randn(1, 32, 2048, 64),
                                         randn(1, 32, 2048, 64),
@@ -1184,10 +1214,14 @@ def check_grads(torch, dev):
         "delta": ("delta", delta_args, None, ("f32",)),
         "delta_lengths": ("delta", delta_args, lens(1024, 700, 1024, 333),
                           ("f32",)),
+        "attention_swa_mixtral": ("attention", (
+            randn(1, 48, 8192, 128), randn(1, 8, 8192, 128),
+            randn(1, 8, 8192, 128)), None, ("bf16",), {"window": 4096}),
     }
     out = {}
-    for name, (op, args, lengths, dtypes) in cases.items():
+    for name, (op, args, lengths, dtypes, *opkw) in cases.items():
         kw = {} if lengths is None else {"lengths": lengths}
+        kw.update(*opkw)
         entry = out[name] = {"fwd_max_abs_err": {}, "fwd_atol_needed": {}}
         for dtype in dtypes:
             # q, k, v take the model's dtype; decays, beta and the state
@@ -1241,6 +1275,31 @@ def check_grads(torch, dev):
             worst = max(worst, diff / max(scale, 1e-30))
         entry["grad_rel_diff"] = worst
         del got, want
+    gc_cuda(torch)
+
+    # the banded plain version's gradients against the quadratic one's
+    args = (randn(1, 12, 8192, 128), randn(1, 2, 8192, 128),
+            randn(1, 2, 8192, 128))
+    up = randn(1, 12, 8192, 128)
+
+    def swa_grads(fn):
+        xs = [a.detach().clone().requires_grad_() for a in args]
+        return torch.autograd.grad(fn(*xs, window=4096), xs, up)
+
+    got = swa_grads(swa_banded)
+    want = swa_grads(flash_attention_ref)
+    worst = 0.0
+    for a, b in zip(got, want):
+        scale = float(b.abs().max())
+        diff = float((a - b).abs().max())
+        if not (torch.isfinite(a).all() and diff <= TOL_GRAD * scale):
+            fail(f"swa_banded's gradient differs from the quadratic "
+                 f"attention's: {diff:.3e} against {scale:.3e}")
+        worst = max(worst, diff / max(scale, 1e-30))
+    out["swa_vs_quadratic"] = {"shape": [1, 12, 2, 8192, 128],
+                               "window": 4096, "grad_rel_diff": worst}
+    del got, want
+    gc_cuda(torch)
     return out
 
 
@@ -3184,6 +3243,245 @@ def hybrid_train(torch, dev):
             "launches": launches}
 
 
+def moe_routing(torch, cfg, model, params, batch):
+    """The first MoE block's routing on ``batch``'s tokens (the first
+    block of the first repeat, whose input is the embeddings through its
+    mixer): (top-k experts (T, k) sorted per token, each pair's capacity
+    keep in the sorted dispatch order)."""
+    from repro_torch.models.layers import (_route, _sorted_pairs,
+                                           capacity_plan, rms_norm)
+    from repro_torch.models.model import _block_params
+
+    g = cfg.groups[0]
+    b, p = g.blocks[0], _block_params(g, params["groups"][0], 0)["b0"]
+    tokens = torch.as_tensor(batch["tokens"]).to(params["embed"].device)
+    with torch.no_grad():
+        x, positions, _ = model._decoder_input(
+            params, {"tokens": tokens[:, :-1].long()})
+        x, _ = model._mix(b, p, x, positions, None)
+        h = rms_norm(x, p["ln2"], cfg.norm_eps).reshape(-1, cfg.d_model)
+        gates, idx = _route(p["ffn"], h, b.ffn.top_k)
+        keep, _ = capacity_plan(_sorted_pairs(gates, idx)[1], h.shape[0],
+                                b.ffn)
+    return torch.sort(idx, dim=1).values, keep
+
+
+def _train_batches(torch, dev, cfg, B, S, seed, steps):
+    """``steps`` batches of ``SyntheticLM`` tokens (B, S + 1), with random
+    float32 frames (B, 2 S, encoder_input_dim) for an encoder-decoder and
+    patches (B, num_image_patches, d_model) for a VLM, from ``seed``."""
+    from repro_torch.training import DataConfig, SyntheticLM
+
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  global_batch=B))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for step in range(steps):
+        b = {"tokens": torch.from_numpy(data.batch(step)["tokens"]).to(dev)}
+        if cfg.encoder_groups is not None:
+            b["frames"] = torch.randn((B, 2 * S, cfg.encoder_input_dim),
+                                      generator=g, device=dev)
+        if cfg.num_image_patches:
+            b["patches"] = torch.randn((B, cfg.num_image_patches,
+                                        cfg.d_model), generator=g, device=dev)
+        out.append(b)
+    return out
+
+
+def init_loss(cfg) -> float:
+    """The cross-entropy the random init gives: the final norm's unit-rms
+    rows against (un)embedding columns drawn N(0, 0.02^2) (``params.py``)
+    give logits of variance 0.02^2 d_model, and the log-sum-exp of V such
+    logits is ln V plus half that variance (ln V + 1.23 at mixtral's
+    d_model 6144, + 0.20 at seamless's 1024)."""
+    return math.log(cfg.vocab_size) + 0.5 * 0.02 ** 2 * cfg.d_model
+
+
+def train_run(torch, dev, tag, cfg, seed, batches, probes, *, repeat=False,
+              check_rows=None):
+    """Three AdamW steps (lr 3e-4, warmup 2) through ``make_train_step``
+    with remat, one microbatch, random bf16 weights from ``seed``, every
+    kernel launch counted from 0.  Before them, step 0's loss and
+    gradients (``aux`` from them; twice with ``repeat``, which must give
+    the same bits).  Gates: finite losses and grad norms, a step-0 loss
+    within 1.0 of the random init's (``init_loss``), each ``probes``
+    leaf (a name: a function of the params) moved, flash launched.  With
+    ``check_rows`` (a batch of one row), the loss and gradients on it
+    through the kernels against the plain versions in float32, gated at
+    TOL_TRAIN_LOSS / TOL_TRAIN_GRAD.  Frees the params.  Returns the
+    run's summary."""
+    import math
+
+    from repro_torch.kernels import build
+    from repro_torch.models import Model
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.params import requires_grad
+    from repro_torch.training import (AdamWConfig, TrainConfig,
+                                      init_opt_state, loss_and_grads,
+                                      make_train_step)
+
+    params = requires_grad(load_params(torch, dev, cfg, seed))
+    model = Model(cfg, use_kernels=True, remat=True)
+    moe = any(b.ffn.kind == "moe" for g in cfg.groups for b in g.blocks)
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "params": cfg.param_count(),
+           "tokens": list(batches[0]["tokens"].shape)}
+    if moe:
+        idx, keep = moe_routing(torch, cfg, model, params, batches[0])
+        out["pairs_dropped_share"] = 1.0 - float(keep.float().mean())
+        del idx, keep
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    loss, m, grads = loss_and_grads(model, params, batches[0])
+    torch.cuda.synchronize()
+    out["step0_loss_and_grads_s"] = time.perf_counter() - t0
+    out["aux"], out["ce"] = float(m["aux"]), float(m["ce"])
+    if repeat:
+        loss2, m2, grads2 = loss_and_grads(model, params, batches[0])
+        same = (torch.equal(loss, loss2) and torch.equal(m["aux"], m2["aux"])
+                and all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(grads), tree_leaves(grads2))))
+        out["step0_repeat_bit_identical"] = same
+        del loss2, m2, grads2
+        if not same:
+            fail(f"{tag}: step 0 twice from the same params gave other "
+                 f"bits")
+    del loss, m, grads
+    tc = TrainConfig(adamw=AdamWConfig(lr=3e-4, warmup_steps=2,
+                                       total_steps=3))
+    state = init_opt_state(params, tc)
+    step_fn = make_train_step(model, tc)
+    before = {name: f(params).detach().flatten()[:64].clone()
+              for name, f in probes.items()}
+    hist = []
+    for step, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        hist.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "time_s": time.perf_counter() - t0})
+    out.update(steps=hist, launches=dict(build.LAUNCHES),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    require_launched(out["launches"], ("flash_attention",), tag)
+    for h in hist:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            fail(f"{tag}: non-finite loss or grad norm {hist}")
+    out["init_loss"] = init_loss(cfg)
+    if abs(hist[0]["loss"] - out["init_loss"]) > 1.0:
+        fail(f"{tag}: step-0 loss {hist[0]['loss']:.3f} is not near the "
+             f"random init's {out['init_loss']:.3f}")
+    still = [name for name, f in probes.items()
+             if torch.equal(before[name], f(params).detach().flatten()[:64])]
+    if still:
+        fail(f"{tag}: the params did not move: {still}")
+    del state, step_fn
+    gc_cuda(torch)
+    if check_rows is not None:
+        out["f32_check"] = train_f32_check(torch, tag, cfg, params,
+                                           check_rows, moe)
+    del params
+    gc_cuda(torch)
+    return out
+
+
+def train_f32_check(torch, tag, cfg, params, batch, moe):
+    """Loss and gradients on ``batch`` through the kernels against the
+    plain versions in float32 (the params converted in place), gated at
+    TOL_TRAIN_LOSS and TOL_TRAIN_GRAD; for a MoE the routing decisions of
+    its first block that differ between the two (experts and capacity
+    keeps), recorded beside the gate."""
+    from repro_torch.models import Model
+    from repro_torch.params import requires_grad
+    from repro_torch.training import loss_and_grads
+
+    with torch.no_grad():
+        requires_grad(params, False)
+        cfg, params = to_float32(cfg, params)
+    requires_grad(params)
+    gc_cuda(torch)
+    res, routes = {}, {}
+    for path, use in (("kernels", True), ("plain", False)):
+        model = Model(cfg, use_kernels=use, remat=True)
+        loss, _, res[path] = loss_and_grads(model, params, batch)
+        res[path + "_loss"] = float(loss)
+        if moe:
+            routes[path] = moe_routing(torch, cfg, model, params, batch)
+    lk, lp = res["kernels_loss"], res["plain_loss"]
+    norm_gap, diff, worst, share = _grad_gap(torch, res["kernels"],
+                                             res["plain"])
+    check = {"loss_kernels": lk, "loss_plain": lp,
+             "loss_rel_diff": abs(lk - lp) / abs(lp),
+             "grad_norm_rel_diff": norm_gap, "grad_rel_l2_diff": diff,
+             "largest_diff_leaf": worst, "largest_diff_leaf_share": share}
+    if moe:
+        (ik, kk), (ip, kp) = routes["kernels"], routes["plain"]
+        check["routing_experts_differ"] = int((ik != ip).sum())
+        check["routing_keeps_differ"] = int((kk != kp).sum())
+    del res
+    gc_cuda(torch)
+    print(f"{tag} float32 check, kernels vs plain: {check}", flush=True)
+    if not (check["loss_rel_diff"] <= TOL_TRAIN_LOSS
+            and check["grad_norm_rel_diff"] <= TOL_TRAIN_GRAD):
+        fail(f"{tag} train check in float32: kernels vs plain {check}")
+    return check
+
+
+def train_more(torch, dev):
+    """Phase 8: training on the MoE, encoder-decoder and VLM families,
+    full width, random bf16 weights from a seed, remat, AdamW, three
+    steps each (``train_run``):
+      * mixtral-8x22b, ``MIXTRAL_TRAIN_LAYERS`` (1) of its 56 layers, all 8
+        experts (2.91 B params): batch 1 x 8192 tokens, so the flash
+        kernel's backward recompute is ``swa_banded`` (window 4096);
+        capacity MoE and its aux loss; step 0 twice, bit-identical; the
+        float32 kernels-vs-plain check on one 2048-token row;
+      * seamless-m4t-medium at full depth (12 + 12 layers): batch 2 x 1024
+        tokens over 2048 random frames (the encoder's self-attention and
+        the cross-attention recompute through ``mea_attention``); the
+        float32 check on one row;
+      * phi-3-vision-4.2b, ``PHI3_TRAIN_LAYERS`` (8) of its 32 layers:
+        batch 2 x (576 random patches + 1024 tokens).
+    Returns {tag: summary}."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    cfg = mixtral_config(MIXTRAL_TRAIN_LAYERS)
+    rows = _train_batches(torch, dev, cfg, 1, 2048, 11, 1)[0]
+
+    def stacked(*path):
+        def get(params):
+            x = params["groups"][0]["stacked"]["b0"]
+            for k in path:
+                x = x[k]
+            return x[0]
+        return get
+
+    out["mixtral_train"] = train_run(
+        torch, dev, "mixtral_train", cfg, 12,
+        _train_batches(torch, dev, cfg, 1, 8192, 12, 3),
+        {"router": stacked("ffn", "router"),
+         "expert0_w1": lambda p: stacked("ffn", "w1")(p)[0]},
+        repeat=True, check_rows=rows)
+    cfg = get_config("seamless-m4t-medium")
+    batches = _train_batches(torch, dev, cfg, 2, 1024, 13, 3)
+    rows = {k: v[:1] for k, v in batches[0].items()}
+    out["seamless_train"] = train_run(
+        torch, dev, "seamless_train", cfg, 13, batches,
+        {"enc_proj": lambda p: p["enc_proj"]["w"],
+         "encoder_layer0_wq": lambda p: p["enc_groups"][0]["stacked"]["b0"][
+             "mixer"]["wq"]["w"][0]},
+        check_rows=rows)
+    cfg = depth_cut(get_config("phi-3-vision-4.2b"), PHI3_TRAIN_LAYERS)
+    out["phi3_train"] = train_run(
+        torch, dev, "phi3_train", cfg, 14,
+        _train_batches(torch, dev, cfg, 2, 1024, 14, 3),
+        {"patch_proj": lambda p: p["patch_proj"]["w"]})
+    return out
+
+
 # what some kernel entries add to the keys every entry has: achieved rate,
 # share of the bound and the error at each checked shape (rows 1 and 9),
 # the GQA shape's numbers (row 8), device time, each pass's and the
@@ -3447,6 +3745,19 @@ def main():
           f"{summary['mean_step_s_after_first']:.3f} s a step, launches "
           f"{summary['launches']}", flush=True)
     phase("training")
+    # training on the MoE (capacity + aux loss), the encoder-decoder and
+    # the VLM
+    for tag, summary in train_more(torch, dev).items():
+        paths[tag] = summary
+        for name, n in summary["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        losses = [round(h["loss"], 4) for h in summary["steps"]]
+        print(f"{tag}: losses {losses}, aux {summary['aux']:.4f}, dropped "
+              f"{summary.get('pairs_dropped_share', 0.0):.4f} of the pairs, "
+              f"peak {summary['peak_memory_gb']:.1f} GB, "
+              f"{summary['steps'][-1]['time_s']:.2f} s the last step, "
+              f"launches {summary['launches']}", flush=True)
+    phase("train_more")
     paths["phase_s"] = phase_s
     paths["calibration"] = calib
     paths["gradient_checks"] = grad_checks

@@ -27,6 +27,7 @@ from repro_torch.kernels import gla as _gla
 from repro_torch.kernels import paged_decode_attn as _pdecode
 from repro_torch.kernels import paged_prefill_attn as _pprefill
 from repro_torch.kernels import quantize as _quant
+from repro_torch.models import chunked_attention as _chunked
 
 
 def _plain(use_kernel: bool, x) -> bool:
@@ -65,16 +66,50 @@ class RecomputeGrad(torch.autograd.Function):
         return (None, None, *(next(got) if n else None for n in need))
 
 
+# at most this many keys, the plain attention is the quadratic version
+SMALL_SEQ = 1024
+
+
+def plain_attention_route(Sq: int, Sk: int, *, causal: bool,
+                          window: int) -> str:
+    """Which plain attention runs at these shapes, as the reference's
+    ``_attention_jnp`` (``src/repro/kernels/ops.py:92-101``) picks it:
+    ``"quadratic"`` (``flash_attention_ref``) up to ``SMALL_SEQ`` keys,
+    ``"swa_banded"`` for a causal window over at least two windows of
+    self-attention, ``"mea"`` (``mea_attention``) otherwise."""
+    if Sk <= SMALL_SEQ:
+        return "quadratic"
+    if window > 0 and causal and Sq == Sk and Sk >= 2 * window:
+        return "swa_banded"
+    return "mea"
+
+
+def attention_plain(q, k, v, *, causal=True, window=0, scale=None,
+                    q_offset=0):
+    """The plain attention of :func:`plain_attention_route`'s choice: the
+    CPU path, and the backward recompute of the kernel on CUDA."""
+    route = plain_attention_route(q.shape[2], k.shape[2], causal=causal,
+                                  window=window)
+    if route == "quadratic":
+        return _flash.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window, scale=scale,
+                                          q_offset=q_offset)
+    if route == "swa_banded":
+        return _chunked.swa_banded(q, k, v, window=window, scale=scale)
+    return _chunked.mea_attention(q, k, v, causal=causal, window=window,
+                                  scale=scale, q_offset=q_offset)
+
+
 def attention(q, k, v, *, causal=True, window=0, scale=None, q_offset=0,
               use_kernel=True):
     """Full attention (GQA/MQA/MHA/SWA). q: (B,Hq,Sq,Dk); k, v:
-    (B,Hkv,Sk,Dk/Dv).  ``q_offset`` is always explicit: the position of q
-    row 0 minus that of k row 0 (the chunked-prefill suffix passes the
-    prior length)."""
+    (B,Hkv,Sk,Dk/Dv).  ``q_offset`` is explicit: the position of q row 0
+    minus that of k row 0 (the chunked-prefill suffix passes the prior
+    length).  The plain version is :func:`attention_plain`."""
     kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
 
     def plain(q, k, v):
-        return _flash.flash_attention_ref(q, k, v, **kw)
+        return attention_plain(q, k, v, **kw)
 
     if _plain(use_kernel, q):
         return plain(q, k, v)

@@ -15,6 +15,13 @@ tensors' device instead, so ``--device cpu`` runs the plain versions and
 computes what the reference's launcher computes, and ``--device cuda`` runs
 the CUDA kernels.  ``--production-mesh`` (the sharded multi-device mesh)
 is not ported yet and raises.
+
+Every token architecture trains, the MoE ones (kimi-linear-1t,
+llama4-scout, mixtral-8x22b) on the capacity MoE with its load-balance
+loss.  Like the reference's, the launcher feeds ``SyntheticLM`` tokens
+alone: an encoder-decoder or a VLM needs frames or patches it does not
+make, so train those through ``make_train_step`` with a batch that has
+them.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Shared layer primitives: RMSNorm, RoPE, FFN, dropless MoE (a sorted
-loop over experts for prefill, every expert at once for decode), causal
-conv.
+loop over experts for prefill, every expert at once for decode), the
+capacity MoE and its load-balance loss (training), causal conv.
 
 Counterparts of ``src/repro/models/layers.py``; every function keeps the
 reference's dtype at each step (bf16 activations, float32 statistics)."""
@@ -64,13 +64,7 @@ def apply_moe_dropless(p, x, spec: FFNSpec):
     x2 = x.reshape(-1, d)
     T = x2.shape[0]
     E, k = spec.num_experts, spec.top_k
-    gates, idx = _route(p, x2, k)
-
-    flat_e = idx.reshape(-1)
-    flat_t = torch.arange(T, device=x.device).repeat_interleave(k)
-    flat_g = gates.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    se, st, sg = flat_e[order], flat_t[order], flat_g[order]
+    order, se, st, sg = _sorted_pairs(*_route(p, x2, k))
     counts = torch.bincount(se, minlength=E).tolist()
 
     xs = x2[st]                                               # (T*k, d)
@@ -84,16 +78,98 @@ def apply_moe_dropless(p, x, spec: FFNSpec):
                 h = h * (xe @ p["w3"][e])
             ys[lo:lo + n] = h @ p["w2"][e]
         lo += n
-    ys = ys * sg[:, None].to(ys.dtype)
-    # each token's rows in the sorted order: its experts are distinct, so
-    # ascending sorted positions are ascending expert ids
+    out = _combine(ys * sg[:, None].to(ys.dtype), order, T, k)
+    return _with_shared(p, out, x2, spec).reshape(shape)
+
+
+def _combine(contrib, order, T: int, k: int):
+    """(T, d): each token's k rows of ``contrib`` (T * k, d), which is in
+    the sorted order ``order``, added one at a time in ascending expert id
+    (a token's experts are distinct, so ascending sorted positions are
+    ascending expert ids): the order of the reference's sorted
+    ``.at[st].add``, fixed on every device."""
     inv = torch.empty_like(order)
-    inv[order] = torch.arange(T * k, device=x.device)
-    rows = ys[torch.sort(inv.reshape(T, k), dim=1).values]    # (T, k, d)
-    out = torch.zeros((T, d), dtype=ys.dtype, device=x.device)
+    inv[order] = torch.arange(T * k, device=order.device)
+    rows = contrib[torch.sort(inv.reshape(T, k), dim=1).values]  # (T, k, d)
+    out = torch.zeros((T, contrib.shape[-1]), dtype=contrib.dtype,
+                      device=contrib.device)
     for j in range(k):
         out = out + rows[:, j]
-    return _with_shared(p, out, x2, spec).reshape(shape)
+    return out
+
+
+def _sorted_pairs(gates, idx):
+    """The (token, expert) pairs of the top-k ``gates`` / ``idx`` (T, k)
+    sorted by expert, stably (as the reference's ``jnp.argsort``): (the
+    sort order of the flat pairs, then their experts, tokens and gates in
+    it)."""
+    T, k = idx.shape
+    order = torch.argsort(idx.reshape(-1), stable=True)
+    st = torch.arange(T, device=idx.device).repeat_interleave(k)[order]
+    return order, idx.reshape(-1)[order], st, gates.reshape(-1)[order]
+
+
+def moe_capacity(T: int, spec: FFNSpec) -> int:
+    """Slots per expert of the capacity MoE for ``T`` tokens."""
+    cap = int(T * spec.top_k * spec.capacity_factor / spec.num_experts) + 1
+    return max(8, min(cap, T))
+
+
+def capacity_plan(se, T: int, spec: FFNSpec):
+    """The capacity MoE's slots for the sorted pairs' experts ``se``
+    (:func:`_sorted_pairs`) of ``T`` tokens: (keep, whether each pair has
+    a slot; slot, its slot in the (E * C) buffer, its expert's first where
+    dropped).  Within an expert the earlier pairs take the C slots."""
+    C = moe_capacity(T, spec)
+    counts = torch.bincount(se, minlength=spec.num_experts)
+    seg_start = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(se.shape[0], device=se.device) - seg_start[se]
+    keep = pos_in_e < C
+    return keep, se * C + torch.where(keep, pos_in_e, 0)
+
+
+def apply_moe(p, x, spec: FFNSpec):
+    """Token-choice top-k MoE with capacity drop (training), x: (..., d)
+    -> (..., d): each expert takes at most ``moe_capacity`` tokens in
+    (E, C, d) products; a pair past its expert's capacity adds nothing.
+    The reference's ``_apply_moe_flat`` without ``dropless``
+    (``src/repro/models/layers.py:179-238``); its combine is
+    :func:`_combine`'s fixed order."""
+    shape = x.shape
+    d = shape[-1]
+    x2 = x.reshape(-1, d)
+    T = x2.shape[0]
+    E, k = spec.num_experts, spec.top_k
+    C = moe_capacity(T, spec)
+    order, se, st, sg = _sorted_pairs(*_route(p, x2, k))
+    keep, slot = capacity_plan(se, T, spec)
+
+    # each slot's token, T (a zero row) where empty; dropped pairs write
+    # the spare entry E * C, which is cut off
+    buf_tok = torch.full((E * C + 1,), T, dtype=torch.long, device=x.device)
+    buf_tok[torch.where(keep, slot, E * C)] = st
+    x_pad = torch.cat([x2, x2.new_zeros((1, d))])
+    xs = x_pad[buf_tok[:E * C]].reshape(E, C, d)
+    h = _act(torch.bmm(xs, p["w1"]), spec)
+    if spec.activation in ("swiglu", "geglu"):
+        h = h * torch.bmm(xs, p["w3"])
+    ys = torch.bmm(h, p["w2"]).reshape(E * C, d)
+    contrib = ys[slot] * sg[:, None].to(ys.dtype)
+    contrib = torch.where(keep[:, None], contrib, 0.0)
+    return _with_shared(p, _combine(contrib, order, T, k), x2,
+                        spec).reshape(shape)
+
+
+def moe_aux_loss(p, x, spec: FFNSpec):
+    """Switch-style load-balance loss of the router on ``x`` (..., d):
+    E * sum over experts of (share of top-k picks) x (mean probability),
+    float32 (the reference's ``moe_aux_loss``)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    logits = x2.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    _, idx = torch.topk(logits, spec.top_k, dim=-1)
+    onehot = F.one_hot(idx, spec.num_experts).float().sum(1)  # (T, E)
+    return spec.num_experts * torch.sum(onehot.mean(0) * probs.mean(0))
 
 
 def apply_moe_decode(p, x, spec: FFNSpec):

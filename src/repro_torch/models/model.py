@@ -32,10 +32,11 @@ VLM (``cfg.num_image_patches``: ``batch["patches"]`` through
 ``patch_proj``, prepended to the tokens) run through :meth:`prefill` and
 :meth:`decode_step`, the reference's whole surface for them; the chunked
 prefill and the speculative verify refuse them, as the paged layout and the
-serving engines do.  Training (``train_loss``) builds no caches; it runs
-dense and FFN-less decoder-only blocks, and raises ``NotImplementedError``
-on a MoE block, an encoder or an image prefix (capacity MoE, its aux loss
-and the encoder's backward are ROADMAP A10).
+serving engines do.  Training (``train_loss``) builds no caches and runs
+every architecture the reference trains: a MoE block takes the capacity
+form (:func:`layers.apply_moe`) and adds its load-balance loss, as the
+reference's training does; an encoder-decoder backpropagates through its
+encoder, and a VLM's patch positions are left out of the loss.
 """
 from __future__ import annotations
 
@@ -46,9 +47,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import AttentionSpec, BlockSpec, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import linear_attention as lin_mod
-from repro_torch.models.layers import (apply_ffn, apply_moe_decode,
-                                       apply_moe_dropless, rms_norm)
+from repro_torch.models.layers import (apply_ffn, apply_moe,
+                                       apply_moe_decode, apply_moe_dropless,
+                                       moe_aux_loss, rms_norm)
 from repro_torch.models.tree import tree_map, tree_map_named
+
+
+# weight of the MoE load-balance loss in the training loss (the
+# reference's ``AUX_LOSS_WEIGHT``), per decoder layer
+AUX_LOSS_WEIGHT = 0.01
 
 
 def torch_dtype(cfg: ModelConfig):
@@ -192,12 +199,31 @@ class Model:
                            f)
         return x
 
+    def _train_ffn(self, spec: BlockSpec, p, x, aux):
+        """The FFN sub-block in training: a MoE block takes the capacity
+        form and adds its load-balance loss to ``aux``.  Returns (x,
+        aux)."""
+        f = spec.ffn
+        if f.kind != "moe":
+            return self._ffn(spec, p, x), aux
+        h = rms_norm(x, p["ln2"], self.cfg.norm_eps)
+        return (x + apply_moe(p["ffn"], h, f),
+                aux + moe_aux_loss(p["ffn"], h, f))
+
     def _apply_block(self, spec: BlockSpec, p, x, positions, lengths,
                      cache=None, *, causal=True, enc_out=None):
         """Full-sequence block (``cache`` given: a chunk continuing from the
         prior chunks' cache; ``causal=False``: an encoder block; a block
         with a cross sub-block attends over ``enc_out`` after its mixer and
         caches ``{"self", "cross"}``).  Returns (x, cache)."""
+        x, c = self._mix(spec, p, x, positions, lengths, cache,
+                         causal=causal, enc_out=enc_out)
+        return self._ffn(spec, p, x), c
+
+    def _mix(self, spec: BlockSpec, p, x, positions, lengths, cache=None,
+             *, causal=True, enc_out=None):
+        """The block's mixer and cross sub-blocks, :meth:`_apply_block`
+        without the FFN.  Returns (x, cache)."""
         h = rms_norm(x, p["ln1"], self.cfg.norm_eps)
         m = spec.mixer
         kw = dict(use_kernels=self.use_kernels)
@@ -224,7 +250,7 @@ class Model:
                                                **kw)
             x = x + y
             c = {"self": c, "cross": cc}
-        return self._ffn(spec, p, x), c
+        return x, c
 
     def _decode_block(self, spec: BlockSpec, p, x, cache, lengths,
                       tables=None, page_tokens=None, capacity=None):
@@ -275,26 +301,35 @@ class Model:
         return x, out
 
     def _train_groups(self, params_groups, x, positions, groups=None,
-                      causal=True):
+                      causal=True, enc_out=None, train=True):
         """Every group's repeats in order (``groups``: the decoder's unless
         given), building no caches; each repeat under ``checkpoint`` with
-        ``remat``.  The encoder runs through it too (``causal=False``)."""
+        ``remat``.  The encoder runs through it too (``causal=False``), in
+        prefill with ``train=False``.  ``train``: a MoE block takes the
+        capacity form and its load-balance losses are summed; otherwise it
+        takes the serving path's dropless form.  Returns (x, the summed
+        float32 aux loss)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for g, gp in zip(groups or self.cfg.groups, params_groups):
             reps = (_unbind_reps(gp["stacked"], g.repeats) if gp["stacked"]
                     else [{}] * g.repeats)
 
-            def body(x, pr, _g=g, _gp=gp):
+            def body(x, aux, pr, _g=g, _gp=gp):
                 for bi, b in enumerate(_g.blocks):
                     key = f"b{bi}"
                     p = _gp["shared"][key] if b.shared else pr[key]
-                    x, _ = self._apply_block(b, p, x, positions, None,
-                                             causal=causal)
-                return x
+                    x, _ = self._mix(b, p, x, positions, None,
+                                     causal=causal, enc_out=enc_out)
+                    if train:
+                        x, aux = self._train_ffn(b, p, x, aux)
+                    else:
+                        x = self._ffn(b, p, x)
+                return x, aux
 
             for pr in reps:
-                x = (checkpoint(body, x, pr, use_reentrant=False)
-                     if self.remat else body(x, pr))
-        return x
+                x, aux = (checkpoint(body, x, aux, pr, use_reentrant=False)
+                          if self.remat else body(x, aux, pr))
+        return x, aux
 
     def _logits(self, params, x):
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
@@ -303,30 +338,30 @@ class Model:
 
     # --------------------------------------------------------------- API
     def train_loss(self, params, batch):
-        """batch: {"tokens": (B, S + 1) int}.  Mean next-token
-        cross-entropy of ``tokens[:, 1:]`` given ``tokens[:, :-1]``.
-        Returns (total, {"ce", "aux"}): ``aux`` is the MoE load-balance
-        loss, a float32 zero for the dense and FFN-less blocks trained
-        here, so ``total`` is ``ce``."""
+        """batch: {"tokens": (B, S + 1) int}, with "frames" (B, S_enc,
+        encoder_input_dim) for an encoder-decoder and "patches" (B, P, d)
+        for a VLM.  Mean next-token cross-entropy ``ce`` of ``tokens[:,
+        1:]`` given ``tokens[:, :-1]`` (and the frames or patches; patch
+        positions have no label), plus the decoder's MoE load-balance
+        losses ``aux`` (float32; zero without a MoE block).  Returns
+        (ce + AUX_LOSS_WEIGHT * aux / n_layers, {"ce", "aux"}), as the
+        reference's ``train_loss`` (``src/repro/models/model.py:371-395``).
+        """
         cfg = self.cfg
-        if any(b.ffn.kind == "moe" for g in cfg.groups for b in g.blocks):
-            raise NotImplementedError("training a MoE block (capacity MoE "
-                                      "and its aux loss) is not ported yet "
-                                      "(ROADMAP A10)")
-        if not token_only(cfg):
-            raise NotImplementedError("training an encoder or an image "
-                                      "prefix is not ported yet (ROADMAP "
-                                      "A10)")
-        tokens = torch.as_tensor(batch["tokens"]).to(
-            params["embed"].device).long()
-        inputs, labels = tokens[:, :-1], tokens[:, 1:]
-        B, S = inputs.shape
-        x = params["embed"][inputs]
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        x = self._train_groups(params["groups"], x, positions)
-        loss = self._chunked_ce(params, x, labels)
-        return loss, {"ce": loss, "aux": torch.zeros(
-            (), dtype=torch.float32, device=x.device)}
+        dev = params["embed"].device
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        tokens = batch["tokens"].long()
+        labels = tokens[:, 1:]
+        x, positions, n_prefix = self._decoder_input(
+            params, {**batch, "tokens": tokens[:, :-1]})
+        enc_out = None
+        if cfg.encoder_groups is not None:
+            enc_out = self._encode(params, batch["frames"], train=True)
+        x, aux = self._train_groups(params["groups"], x, positions,
+                                    enc_out=enc_out)
+        ce = self._chunked_ce(params, x[:, n_prefix:], labels)
+        total = ce + AUX_LOSS_WEIGHT * aux / max(1, cfg.n_layers)
+        return total, {"ce": ce, "aux": aux}
 
     def _ce_chunk(self, params, xb, lb, vb):
         """Summed log-likelihood of one chunk's valid labels."""
@@ -352,10 +387,11 @@ class Model:
                 labels[:, c0:c0 + C], valid[c0:c0 + C], use_reentrant=False)
         return -total / (B * S)
 
-    def _encode(self, params, frames):
+    def _encode(self, params, frames, train=False):
         """The encoder's output (B, S_enc, d) of ``frames`` (B, S_enc,
         encoder_input_dim): ``enc_proj``, sinusoidal positions, the
-        bidirectional encoder groups, ``enc_norm``."""
+        bidirectional encoder groups (``train``: as in training, see
+        :meth:`_train_groups`), ``enc_norm``."""
         cfg = self.cfg
         x = frames
         if cfg.encoder_input_dim:
@@ -363,8 +399,9 @@ class Model:
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
-        x = self._train_groups(params["enc_groups"], x, positions,
-                               groups=cfg.encoder_groups, causal=False)
+        x, _ = self._train_groups(params["enc_groups"], x, positions,
+                                  groups=cfg.encoder_groups, causal=False,
+                                  train=train)
         return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
     def _decoder_input(self, params, batch):

@@ -142,3 +142,53 @@ def reference_recipe(scale: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.hybrid_lm(scale)
+
+
+def train_batch(cfg, B: int, S: int, seed: int = 0):
+    """A training batch of numpy arrays, as the reference's
+    ``tests/test_models_smoke.py::make_batch`` makes one: ``tokens`` (B,
+    S + 1), with ``patches`` (B, num_image_patches, d_model) for a VLM and
+    ``frames`` (B, S, encoder_input_dim) for an encoder-decoder."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S + 1))
+             .astype(np.int32)}
+    if cfg.num_image_patches:
+        batch["patches"] = rng.standard_normal(
+            (B, cfg.num_image_patches, cfg.d_model)).astype(np.float32)
+    if cfg.encoder_groups is not None:
+        batch["frames"] = rng.standard_normal(
+            (B, S, cfg.encoder_input_dim)).astype(np.float32)
+    return batch
+
+
+def reference_train_loss(jcfg, jparams, batch):
+    """(total, ce, aux, gradients as a numpy tree) of the reference's
+    ``jax.value_and_grad(Model(cfg, use_kernels=False, remat=True)
+    .train_loss)`` on a numpy ``batch``."""
+    fn = jax.jit(jax.value_and_grad(
+        JaxModel(jcfg, use_kernels=False, remat=True).train_loss,
+        has_aux=True))
+    (total, m), grads = fn(jparams, jax.tree.map(jnp.asarray, batch))
+    return (float(total), float(m["ce"]), float(m["aux"]),
+            jax.tree.map(np.asarray, grads))
+
+
+def assert_train_matches(ref, got, atol=1e-4, rtol=1e-3, of_largest=0.0):
+    """The port's ``loss_and_grads`` result ``got`` against
+    :func:`reference_train_loss`'s ``ref``: total, ce and aux within 1e-5
+    relative, every gradient leaf finite and within ``atol`` (or
+    ``of_largest`` times the leaf's largest |gradient|, where larger) /
+    ``rtol``."""
+    import pytest
+    total, ce, aux, jgrads = ref
+    loss, metrics, grads = got
+    assert float(loss) == pytest.approx(total, rel=1e-5)
+    assert float(metrics["ce"]) == pytest.approx(ce, rel=1e-5)
+    assert float(metrics["aux"]) == pytest.approx(aux, rel=1e-5, abs=1e-7)
+    ja, ta = flatten(jgrads), flatten(grads)
+    assert [p for p, _ in ja] == [p for p, _ in ta]
+    for (path, a), (_, b) in zip(ja, ta):
+        assert a.shape == b.shape and np.isfinite(b).all(), path
+        np.testing.assert_allclose(
+            b, a, atol=max(atol, of_largest * float(np.abs(a).max())),
+            rtol=rtol, err_msg=path)

@@ -1505,3 +1505,41 @@ def test_moe_dropless_is_repeatable(cuda):
     with torch.no_grad():
         ys = [apply_moe_dropless(p, x, spec) for _ in range(3)]
     assert all(torch.equal(ys[0], y) for y in ys[1:])
+
+
+def test_moe_capacity_is_repeatable(cuda):
+    """The training MoE (capacity drop, fixed-order combine) and its
+    gradients give the same bits call after call: three forward and
+    backward passes at mixtral-8x22b's expert widths (d_model 6144, d_ff
+    16384, top-2 of 8, bf16) on 4096 rows, capacity factor 0.5 so pairs
+    are dropped, plus the load-balance loss."""
+    from repro_torch.configs.base import FFNSpec
+    from repro_torch.models.layers import (_route, _sorted_pairs, apply_moe,
+                                           capacity_plan, moe_aux_loss)
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    bf = torch.bfloat16
+    d, f, E = 6144, 16384, 8
+    spec = FFNSpec(kind="moe", d_ff=f, activation="swiglu", num_experts=E,
+                   top_k=2, capacity_factor=0.5)
+    p = {"router": _randn(g, (d, E), torch.float32, cuda, d ** -0.5),
+         "w1": _randn(g, (E, d, f), bf, cuda, d ** -0.5),
+         "w3": _randn(g, (E, d, f), bf, cuda, d ** -0.5),
+         "w2": _randn(g, (E, f, d), bf, cuda, f ** -0.5)}
+    for w in p.values():
+        w.requires_grad_()
+    x = _randn(g, (4096, d), bf, cuda).requires_grad_()
+    up = _randn(g, (4096, d), bf, cuda)
+    with torch.no_grad():
+        keep, _ = capacity_plan(_sorted_pairs(*_route(p, x, 2))[1], 4096,
+                                spec)
+    assert not bool(keep.all())
+    runs = []
+    for _ in range(3):
+        y = apply_moe(p, x, spec)
+        aux = moe_aux_loss(p, x, spec)
+        loss = (y.float() * up.float()).sum() + aux
+        runs.append([y.detach(), aux.detach(), *torch.autograd.grad(
+            loss, [x, *p.values()])])
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))

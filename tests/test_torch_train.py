@@ -22,7 +22,6 @@ import torch
 
 from _torch_parity import configs, flatten, shared_params
 from repro.models import Model as JaxModel
-from repro_torch.configs import get_smoke_config
 from repro_torch.models import Model
 from repro_torch.params import from_numpy_tree, requires_grad
 from repro_torch.training import loss_and_grads
@@ -105,14 +104,3 @@ def test_stacked_grads_keep_their_layout(model_setup):
         assert g.shape == p.shape and g.dtype == p.dtype, path
     shared = grads["groups"][0]["shared"]["b5"]["mixer"]["wq"]["w"]
     assert shared.ndim == 2 and float(shared.abs().sum()) > 0
-
-
-def test_train_loss_rejects_moe():
-    """Capacity MoE training is not ported yet: a MoE block raises, naming
-    the roadmap item, rather than training the dropless serving form."""
-    cfg = get_smoke_config("kimi-linear-1t")
-    from repro_torch.params import init_params
-    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        Model(cfg).train_loss(params, {"tokens": torch.zeros(
-            (1, 9), dtype=torch.long)})
