@@ -191,7 +191,24 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      launched; mixtral's (2048 tokens) and seamless's (one row) float32
      loss and grad norm through the kernels against the plain versions,
      gated, with the routing decisions that differ; each run's aux,
-     dropped pairs and peak memory printed.
+     dropped pairs and peak memory printed;
+  9. ``dryrun``: the work of five steps the earlier phases timed, counted
+     on the ``meta`` device at the same cuts (``dryrun_shares``,
+     ``repro_torch.analysis.counting``): kimi's and mistral-nemo's
+     4096-token prefills, their 8-slot x 4000-token decode blocks of 8
+     steps (the dense ``decode_step``, the paged one's arithmetic) and
+     zamba2's train step; each step's model FLOPs as run
+     (``roofline.model_flops_for(..., as_run=True)``: no input lookup,
+     the logits of the rows computed) over its profiled busy time as a
+     share of the calibration's measured peak (``mfu``, recorded) and of
+     989 TFLOP/s (``mfu_989``), its counted FLOPs over the busy time as a
+     share of 989 TFLOP/s (``counted_989``), and its counted bytes (op by
+     op, a kernel op at its kernel's boundary; not traced) over the busy
+     time as a share of 3.35 TB/s (``hbm_share``); a share of the data
+     sheet outside (0, 1.05] fails (a counting or timing fault);
+ 10. ``examples``: ``repro_torch.examples.quickstart`` and
+     ``serve_cross_dc`` on the card, each as a subprocess; a non-zero
+     exit fails.
 
 Each phase's seconds are printed as it ends (``phase <name>: <s>``) and
 kept under ``phase_s`` in the summary.  The last lines are the main
@@ -3521,6 +3538,110 @@ def _profiled_once(torch, fn):
                             for n, ms, c in top]}
 
 
+def dryrun_shares(torch, paths, calib):
+    """Phase 9: the meta-device counts of five timed steps and their shares
+    of the card (see the module docstring).  Returns {step: {...}}."""
+    from repro_torch.analysis import counting, roofline
+    from repro_torch.configs import get_config
+    from repro_torch.launch import input_specs
+    from repro_torch.models import Model
+
+    meta = torch.device("meta")
+    mistral = depth_cut(get_config("mistral-nemo-12b"), MISTRAL_LAYERS)
+    zamba2 = get_config("zamba2-1.2b")
+    zamba2 = dataclasses.replace(zamba2, groups=(dataclasses.replace(
+        zamba2.groups[0], repeats=ZAMBA2_TRAIN_UNITS),) + zamba2.groups[1:])
+
+    def prefill(cfg):
+        model, params = Model(cfg), input_specs.params_specs(cfg)
+        batch = {"tokens": torch.empty((1, 4096), dtype=torch.long,
+                                       device=meta),
+                 "lengths": torch.empty((1,), dtype=torch.int32,
+                                        device=meta)}
+
+        def run():
+            with torch.no_grad():
+                logits, _ = model.prefill(params, batch)
+                torch.argmax(logits, dim=-1)
+        return run
+
+    block = paths["kimi_decode_profile"]
+    slots, L, steps = (block["slots"], block["tokens_per_slot"],
+                       block["steps"])
+    peak = calib["machine"]["peak_flops"]
+    # (step, config, kind, batch, sequence, steps counted by one run, the
+    # profile's busy ms, how the run is built)
+    plan = (
+        ("kimi_prefill", kimi_config(), "prefill", 1, 4096, 1,
+         paths["kimi_prefill_profile"]["device_busy_ms_profiled"],
+         lambda cfg: prefill(cfg)),
+        ("mistral_prefill", mistral, "prefill", 1, 4096, 1,
+         paths["mistral_prefill_profile"]["device_busy_ms_profiled"],
+         lambda cfg: prefill(cfg)),
+        ("kimi_decode_block", kimi_config(), "decode", slots, L, steps,
+         paths["kimi_decode_profile"]["graph"]["device_busy_ms_profiled"],
+         lambda cfg: counting.step_fn(cfg, "decode", slots, L)),
+        ("mistral_decode_block", mistral, "decode", slots, L, steps,
+         paths["mistral_decode_profile"]["graph"]["device_busy_ms_profiled"],
+         lambda cfg: counting.step_fn(cfg, "decode", slots, L)),
+        ("zamba2_train_step", zamba2, "train", 2, 2048, 1,
+         paths["zamba2_train"]["step_profile"]["device_busy_ms"],
+         lambda cfg: counting.step_fn(cfg, "train", 2, 2048, mb=2)),
+    )
+    out = {}
+    for name, cfg, kind, B, S, reps, busy_ms, build in plan:
+        t0 = time.perf_counter()
+        c = counting.count(build(cfg))
+        flops, nbytes = c["flops"] * reps, c["bytes"] * reps
+        model_flops = reps * roofline.model_flops_for(
+            cfg, kind, S, B, kind == "train", as_run=True)
+        busy_s = busy_ms / 1e3
+        r = {"model_flops": model_flops, "counted_flops": flops,
+             "counted_bytes": nbytes, "busy_ms": busy_ms,
+             "mfu": model_flops / busy_s / peak,
+             "mfu_989": model_flops / busy_s / roofline.PEAK_FLOPS,
+             "counted_989": flops / busy_s / roofline.PEAK_FLOPS,
+             "hbm_share": nbytes / busy_s / roofline.HBM_BW,
+             "count_s": time.perf_counter() - t0}
+        print(f"dryrun {name}: model_flops {model_flops:.4g}, counted "
+              f"{flops:.4g} FLOPs and {nbytes:.4g} bytes, busy "
+              f"{busy_ms:.2f} ms", flush=True)
+        print(f"dryrun {name}: mfu {r['mfu']:.4f} of the measured "
+              f"{peak / 1e12:.1f} TFLOP/s ({r['mfu_989']:.4f} of "
+              f"{roofline.PEAK_FLOPS / 1e12:.0f}; counted "
+              f"{r['counted_989']:.4f}), hbm_share {r['hbm_share']:.4f}",
+              flush=True)
+        bad = [k for k in ("mfu_989", "counted_989", "hbm_share")
+               if not 0.0 < r[k] <= TOL_PEAK]
+        if bad or not r["mfu"] > 0.0:
+            fail(f"dryrun {name}: {bad or ['mfu']} outside (0, {TOL_PEAK}]: "
+                 f"{r}")
+        out[name] = r
+    return out
+
+
+def run_examples():
+    """Phase 10: the quickstart and cross-DC serving examples on the card,
+    each a subprocess from this checkout.  Returns {example: seconds}."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = {}
+    for name in ("quickstart", "serve_cross_dc"):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m",
+                              f"repro_torch.examples.{name}"],
+                             cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        out[name] = time.perf_counter() - t0
+        tail = res.stdout.strip().splitlines()[-2:]
+        print(f"example {name}: exit {res.returncode} in {out[name]:.1f} "
+              f"s; {tail}", flush=True)
+        if res.returncode != 0:
+            fail(f"example {name} exited {res.returncode}: "
+                 f"{res.stderr[-2000:]}")
+    return out
+
+
 def main():
     import gc
 
@@ -3758,6 +3879,10 @@ def main():
               f"{summary['steps'][-1]['time_s']:.2f} s the last step, "
               f"launches {summary['launches']}", flush=True)
     phase("train_more")
+    paths["dryrun"] = dryrun_shares(torch, paths, calib)
+    phase("dryrun")
+    paths["examples_s"] = run_examples()
+    phase("examples")
     paths["phase_s"] = phase_s
     paths["calibration"] = calib
     paths["gradient_checks"] = grad_checks

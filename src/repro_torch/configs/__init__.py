@@ -12,6 +12,7 @@ from repro_torch.configs import (granite_20b, h2o_danube_1_8b,
 from repro_torch.configs.base import (AttentionSpec, BlockSpec, FFNSpec,
                                       GroupSpec, LinearSpec, ModelConfig,
                                       reduce_for_smoke)
+from repro_torch.configs.shapes import SHAPES, ShapeSpec, cells
 
 ARCH_BUILDERS = {
     "kimi-linear-1t": kimi_linear_1t.build,
@@ -28,6 +29,11 @@ ARCH_BUILDERS = {
 }
 
 
+# the reference's ten assigned architectures (its dry-run grid), without
+# the paper's own case-study model
+ASSIGNED_ARCHS = [k for k in ARCH_BUILDERS if k != "kimi-linear-1t"]
+
+
 def get_config(name: str) -> ModelConfig:
     if name not in ARCH_BUILDERS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_BUILDERS)}")
@@ -38,6 +44,12 @@ def get_smoke_config(name: str) -> ModelConfig:
     return reduce_for_smoke(get_config(name))
 
 
-__all__ = ["ARCH_BUILDERS", "get_config", "get_smoke_config", "ModelConfig",
+def all_configs(assigned_only: bool = True):
+    names = ASSIGNED_ARCHS if assigned_only else list(ARCH_BUILDERS)
+    return {n: get_config(n) for n in names}
+
+
+__all__ = ["ARCH_BUILDERS", "ASSIGNED_ARCHS", "SHAPES", "ShapeSpec", "cells",
+           "get_config", "get_smoke_config", "all_configs", "ModelConfig",
            "AttentionSpec", "LinearSpec", "FFNSpec", "BlockSpec", "GroupSpec",
            "reduce_for_smoke"]

@@ -1,2 +1,3 @@
-"""Distributed-optimisation helpers of the port (gradient compression).
-The sharding rules and the device mesh are not ported yet."""
+"""Distributed helpers of the port: gradient compression
+(``collectives.py``) and the sharding rules with their DTensor placements
+(``sharding.py``); the meshes are in ``launch/mesh.py``."""

@@ -31,7 +31,18 @@ from repro_torch.models import chunked_attention as _chunked
 
 
 def _plain(use_kernel: bool, x) -> bool:
-    return not use_kernel or x.device.type == "cpu"
+    """The plain version runs for ``use_kernel=False`` and for CPU and
+    ``meta`` tensors (the dry run counts a step's work on ``meta``, as the
+    reference's lowers every op to its plain version on host devices); a
+    CUDA tensor always reaches its kernel."""
+    return not use_kernel or x.device.type in ("cpu", "meta")
+
+
+def _run_plain(plain, *inputs):
+    """``plain(*inputs)``: every kernel op runs its plain version through
+    this one call, the seam where ``analysis/counting.py`` counts a kernel
+    op's bytes at its kernel's boundary while it counts a step."""
+    return plain(*inputs)
 
 
 class RecomputeGrad(torch.autograd.Function):
@@ -112,7 +123,7 @@ def attention(q, k, v, *, causal=True, window=0, scale=None, q_offset=0,
         return attention_plain(q, k, v, **kw)
 
     if _plain(use_kernel, q):
-        return plain(q, k, v)
+        return _run_plain(plain, q, k, v)
 
     def kernel(q, k, v):
         return _flash.flash_attention(q.contiguous(), k.contiguous(),
@@ -160,7 +171,7 @@ def delta(q, k, v, log_a, beta, initial_state=None, *, lengths=None,
                 s0.contiguous())
     args = (q, k, v, log_a, beta, initial_state)
     if _plain(use_kernel, q):
-        return plain(*args)
+        return _run_plain(plain, *args)
     return RecomputeGrad.apply(kernel, plain, q, k, v, log_a.float(),
                           beta.float(), initial_state.float())
 
@@ -197,7 +208,7 @@ def gla(q, k, v, log_a, initial_state=None, *, lengths=None,
                 q.contiguous(), k.contiguous(), v.contiguous(),
                 log_a.contiguous(), lengths, s0.contiguous())
     if _plain(use_kernel, q):
-        return plain(q, k, v, log_a, initial_state)
+        return _run_plain(plain, q, k, v, log_a, initial_state)
     return RecomputeGrad.apply(kernel, plain, q, k, v, log_a.float(),
                           initial_state.float())
 
@@ -210,8 +221,8 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window=0, scale=None,
     (:func:`decode_attn.cache_rows`: GQA's (B, S, Hkv, D) buffers through a
     transpose); other views are copied first."""
     if _plain(use_kernel, q):
-        return _decode.decode_attention_ref(q, k_cache, v_cache, lengths,
-                                            window=window, scale=scale)
+        return _run_plain(lambda *a: _decode.decode_attention_ref(
+            *a, window=window, scale=scale), q, k_cache, v_cache, lengths)
     if _decode.cache_rows(k_cache, v_cache) is None:
         k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
     return _decode.decode_attention(
@@ -230,8 +241,8 @@ def verify_attention(q, k_cache, v_cache, lengths, *, scale=None,
     reference's kernel path does (``src/repro/kernels/ops.py:296-314``),
     so the card's numerics are the one-token decode's."""
     if _plain(use_kernel, q):
-        return _decode.verify_attention_ref(q, k_cache, v_cache, lengths,
-                                            scale=scale)
+        return _run_plain(lambda *a: _decode.verify_attention_ref(
+            *a, scale=scale), q, k_cache, v_cache, lengths)
     S = k_cache.shape[2]
     lengths = lengths.to(device=q.device, dtype=torch.int32)
     return torch.stack([
@@ -246,8 +257,9 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, *,
     (Hkv,P,T,Dk/Dv); tables (B,N) physical page ids; lengths (B,) keys per
     row (context + 1)."""
     if _plain(use_kernel, q):
-        return _pdecode.paged_decode_attention_ref(
-            q, k_pages, v_pages, tables, lengths, window=window, scale=scale)
+        return _run_plain(lambda *a: _pdecode.paged_decode_attention_ref(
+            *a, window=window, scale=scale), q, k_pages, v_pages, tables,
+            lengths)
     return _pdecode.paged_decode_attention(
         q.contiguous(), k_pages.contiguous(), v_pages.contiguous(),
         tables.to(device=q.device, dtype=torch.int32).contiguous(),
@@ -261,8 +273,8 @@ def paged_prefill_attention(q, k_pages, v_pages, tables, k_suf, v_suf, *,
     ``tables`` (B,N), all visible, then the dense suffix keys (B,Hkv,Ssuf,
     Dk/Dv), causally (query row i at suffix position Ssuf - C + i)."""
     if _plain(use_kernel, q):
-        return _pprefill.paged_prefill_attention_ref(
-            q, k_pages, v_pages, tables, k_suf, v_suf, scale=scale)
+        return _run_plain(lambda *a: _pprefill.paged_prefill_attention_ref(
+            *a, scale=scale), q, k_pages, v_pages, tables, k_suf, v_suf)
     return _pprefill.paged_prefill_attention(
         q.contiguous(), k_pages.contiguous(), v_pages.contiguous(),
         tables.to(device=q.device, dtype=torch.int32).contiguous(),

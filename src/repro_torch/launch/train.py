@@ -13,8 +13,15 @@ reference's launcher passes ``use_kernels=False`` only because its Pallas
 kernels run in slow interpret mode on a CPU; the port's ops follow the
 tensors' device instead, so ``--device cpu`` runs the plain versions and
 computes what the reference's launcher computes, and ``--device cuda`` runs
-the CUDA kernels.  ``--production-mesh`` (the sharded multi-device mesh)
-is not ported yet and raises.
+the CUDA kernels.  The step runs on this one device, and each checkpoint
+carries that layout's fingerprint, ``data=1xmodel=1``.
+``--production-mesh`` builds the (16, 16) ("data", "model") ``DeviceMesh``
+over the process group the caller launched (256 ranks,
+``launch/mesh.py``; it raises ``RuntimeError`` with another world size)
+and then refuses to train with ``NotImplementedError``: the port has no
+sharded train step (the model runs on plain tensors, not DTensors), and
+256 unsharded replicas writing one checkpoint directory under the mesh's
+fingerprint would claim a layout their params never had.
 
 Every token architecture trains, the MoE ones (kimi-linear-1t,
 llama4-scout, mixtral-8x22b) on the capacity MoE with its load-balance
@@ -33,6 +40,8 @@ import tempfile
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.distributed.sharding import abstract_mesh
+from repro_torch.launch.mesh import make_production_mesh, mesh_fingerprint
 from repro_torch.models import Model
 from repro_torch.params import init_params
 from repro_torch.training import (AdamWConfig, DataConfig, SyntheticLM,
@@ -59,8 +68,16 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.production_mesh:
-        raise NotImplementedError("the production mesh (sharded params and "
-                                  "batch) is not ported yet (ROADMAP A11)")
+        mesh = make_production_mesh(
+            device_type=torch.device(args.device).type)
+        raise NotImplementedError(
+            f"the production mesh {mesh_fingerprint(mesh)} is built, but "
+            f"the port has no sharded train step: it trains on one device "
+            f"(run without --production-mesh)")
+    return _train(args, abstract_mesh((1, 1), ("data", "model")))
+
+
+def _train(args, mesh):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     device = torch.device(args.device)
     model = Model(cfg, use_kernels=True, remat=True)
@@ -75,7 +92,7 @@ def main(argv=None):
         checkpoint_dir=args.ckpt_dir)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=args.seq, global_batch=args.batch))
-    loop = TrainLoop(model, tc, data, mesh_fingerprint=f"single:{device}")
+    loop = TrainLoop(model, tc, data, mesh_fingerprint=mesh_fingerprint(mesh))
     _, _, hist = loop.run(params, init_opt_state(params, tc), args.steps)
     summary = {"first_loss": hist[0]["loss"], "final_loss": hist[-1]["loss"],
                "steps": len(hist),

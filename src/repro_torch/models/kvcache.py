@@ -10,10 +10,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import AttentionSpec, LinearSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.quantize import request_leaf, whole_leaf
-from repro_torch.models.tree import tree_leaves, tree_map_named
+from repro_torch.models.tree import (tree_flatten_with_path, tree_leaves,
+                                     tree_map_named)
 
 WIRE_LEAVES = ("k", "v", "ckv", "kpe")
 
@@ -21,6 +22,42 @@ WIRE_LEAVES = ("k", "v", "ckv", "kpe")
 def kv_bytes(cfg: ModelConfig, seq_len: int, dtype_bytes: int = 2) -> int:
     """Per-request KVCache + state bytes at context ``seq_len`` (S_kv)."""
     return cfg.kv_cache_bytes(seq_len, dtype_bytes)
+
+
+def kv_bytes_incremental(cfg: ModelConfig, cached_len: int, total_len: int,
+                         dtype_bytes: int = 2) -> int:
+    """Bytes produced by prefilling ``[cached_len, total_len)``: what
+    crosses the inter-DC link for a prefix-cache hit.  Linear-state layers
+    resend their fixed-size state snapshot once (none on a cold start)."""
+    full = kv_bytes(cfg, total_len, dtype_bytes)
+    prior = kv_bytes(cfg, cached_len, dtype_bytes) if cached_len else 0
+    state = linear_state_bytes(cfg)
+    return max(full - prior, 0) + (state if cached_len else 0)
+
+
+def linear_state_bytes(cfg: ModelConfig) -> int:
+    """Summed fixed-size recurrent-state bytes over the linear / SSM
+    blocks.  A mixer is linear-state iff it is a ``LinearSpec`` (or has
+    ``state_bytes``), whatever other attributes it carries; any other
+    non-attention mixer raises ``TypeError``."""
+    total = 0
+    for *_, b in cfg.iter_blocks():
+        m = b.mixer
+        if isinstance(m, AttentionSpec):
+            continue
+        if not isinstance(m, LinearSpec) and not hasattr(m, "state_bytes"):
+            raise TypeError(f"unknown mixer spec {type(m).__name__!r}: "
+                            "expected AttentionSpec or LinearSpec")
+        total += m.state_bytes()
+    return total
+
+
+def flatten_cache_for_transfer(caches):
+    """The cache as a list of (name, tensor) wire chunks, one per layer
+    tensor, in the reference's order and under its names
+    (``jax.tree_util.keystr`` spelling): the unit of layer-wise pipelined
+    transfer (paper §3.3)."""
+    return tree_flatten_with_path(caches)
 
 
 def cache_num_bytes(caches) -> int:

@@ -65,7 +65,13 @@ def apply_moe_dropless(p, x, spec: FFNSpec):
     T = x2.shape[0]
     E, k = spec.num_experts, spec.top_k
     order, se, st, sg = _sorted_pairs(*_route(p, x2, k))
-    counts = torch.bincount(se, minlength=E).tolist()
+    if se.device.type == "meta":
+        # a meta tensor holds no routing: for counting only, the T * k
+        # rows split evenly over the experts, so the products' FLOPs are
+        # the real path's whatever the routing
+        counts = [T * k // E + (e < T * k % E) for e in range(E)]
+    else:
+        counts = torch.bincount(se, minlength=E).tolist()
 
     xs = x2[st]                                               # (T*k, d)
     ys = torch.empty((T * k, d), dtype=x.dtype, device=x.device)
@@ -80,6 +86,25 @@ def apply_moe_dropless(p, x, spec: FFNSpec):
         lo += n
     out = _combine(ys * sg[:, None].to(ys.dtype), order, T, k)
     return _with_shared(p, out, x2, spec).reshape(shape)
+
+
+def in_token_chunks(moe, p, x, spec: FFNSpec, Q: int = 0):
+    """``moe(p, x, spec)`` over chunks of ``Q`` tokens (the
+    ``moe_chunk_tokens`` perf flag) when ``Q`` is set and ``x`` holds more
+    tokens, the last chunk zero-padded, as the reference's scan over chunks
+    (``src/repro/models/layers.py:157-175``): each chunk's capacity is that
+    of a whole chunk, and the padding rows come after every real token, so
+    they take no real token's slot."""
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d)
+    total = x2.shape[0]
+    if not Q or total <= Q:
+        return moe(p, x, spec)
+    pad = (-total) % Q
+    if pad:
+        x2 = torch.cat([x2, x2.new_zeros((pad, d))])
+    out = torch.cat([moe(p, c, spec) for c in x2.split(Q)])
+    return out[:total].reshape(x.shape)
 
 
 def _combine(contrib, order, T: int, k: int):
@@ -121,7 +146,10 @@ def capacity_plan(se, T: int, spec: FFNSpec):
     a slot; slot, its slot in the (E * C) buffer, its expert's first where
     dropped).  Within an expert the earlier pairs take the C slots."""
     C = moe_capacity(T, spec)
-    counts = torch.bincount(se, minlength=spec.num_experts)
+    # integer adds: the same counts on every device, ``meta`` included
+    counts = torch.zeros(spec.num_experts, dtype=se.dtype,
+                         device=se.device).index_add_(0, se,
+                                                      torch.ones_like(se))
     seg_start = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(se.shape[0], device=se.device) - seg_start[se]
     keep = pos_in_e < C

@@ -18,8 +18,9 @@ sliding-window ones the same leaves as rings of ``min(window, S)`` rows.  With
 of the caches are shared page pools instead, addressed through per-slot
 block tables.
 
-The serving path's MoE is always the exact dropless form (the reference's
-inference default): a sorted loop over experts in prefill, every expert at
+The serving path's MoE is the exact dropless form (the reference's
+inference default; a perf variant's token cap sends a larger batch to the
+capacity form): a sorted loop over experts in prefill, every expert at
 once in decode, where it must not sync the host.  A mixer kind the port
 does not have (the GLA mixer kind) raises ``NotImplementedError`` at
 construction.
@@ -49,7 +50,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import linear_attention as lin_mod
 from repro_torch.models.layers import (apply_ffn, apply_moe,
                                        apply_moe_decode, apply_moe_dropless,
-                                       moe_aux_loss, rms_norm)
+                                       in_token_chunks, moe_aux_loss,
+                                       rms_norm)
+from repro_torch.models.perf_flags import PerfFlags
 from repro_torch.models.tree import tree_map, tree_map_named
 
 
@@ -172,31 +175,43 @@ class Model:
     every kernel op to its plain PyTorch version on any device (for the
     comparisons in tests and ``chip_smoke.py``).  ``remat``: training
     recomputes each repeat's activations in the backward
-    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``."""
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
+    ``perf``: the MoE's perf flags (``models/perf_flags.py``; the default
+    is the baseline, which changes nothing)."""
 
     # sequence chunk of the cross-entropy: bounds the transient (B, C, V)
     # float32 logits
     CE_CHUNK = 512
 
     def __init__(self, cfg: ModelConfig, use_kernels: bool = True,
-                 remat: bool = False):
+                 remat: bool = False, perf: PerfFlags = PerfFlags()):
         _check_supported(cfg)
         self.cfg = cfg
         self.use_kernels = use_kernels
         self.remat = remat
+        self.perf = perf
 
     # ------------------------------------------------------------ blocks
     def _ffn(self, spec: BlockSpec, p, x, decode: bool = False):
         """``decode``: the MoE takes its capture-safe form
-        (:func:`apply_moe_decode`)."""
+        (:func:`apply_moe_decode`).  A batch of more tokens than
+        ``perf.moe_dropless_max_tokens`` takes the capacity form, and
+        ``perf.moe_chunk_tokens`` runs the MoE over token chunks, as the
+        reference's ``_moe_dropless`` and ``apply_moe`` (both off in the
+        baseline)."""
         f = spec.ffn
         if f.kind == "dense":
             return x + apply_ffn(p["ffn"], rms_norm(x, p["ln2"],
                                                      self.cfg.norm_eps), f)
         if f.kind == "moe":
-            moe = apply_moe_decode if decode else apply_moe_dropless
-            return x + moe(p["ffn"], rms_norm(x, p["ln2"], self.cfg.norm_eps),
-                           f)
+            h = rms_norm(x, p["ln2"], self.cfg.norm_eps)
+            chunk = self.perf.moe_chunk_tokens
+            if h.numel() // h.shape[-1] > self.perf.moe_dropless_max_tokens:
+                return x + in_token_chunks(apply_moe, p["ffn"], h, f, chunk)
+            if decode:
+                return x + apply_moe_decode(p["ffn"], h, f)
+            return x + in_token_chunks(apply_moe_dropless, p["ffn"], h, f,
+                                       chunk)
         return x
 
     def _train_ffn(self, spec: BlockSpec, p, x, aux):
@@ -207,7 +222,8 @@ class Model:
         if f.kind != "moe":
             return self._ffn(spec, p, x), aux
         h = rms_norm(x, p["ln2"], self.cfg.norm_eps)
-        return (x + apply_moe(p["ffn"], h, f),
+        return (x + in_token_chunks(apply_moe, p["ffn"], h, f,
+                                    self.perf.moe_chunk_tokens),
                 aux + moe_aux_loss(p["ffn"], h, f))
 
     def _apply_block(self, spec: BlockSpec, p, x, positions, lengths,

@@ -24,6 +24,18 @@ def tree_map_named(fn, tree, name: str = ""):
     return fn(name, tree)
 
 
+def tree_map_with_path(fn, tree, path: tuple = ()):
+    """Apply ``fn(path, leaf)``; ``path`` is the tuple of dict keys and
+    list indices down to the leaf (``jax.tree_util.tree_map_with_path``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]

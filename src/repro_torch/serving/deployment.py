@@ -50,7 +50,7 @@ from repro_torch.core.prefix_cache import HybridPrefixCache
 from repro_torch.core.router import (PD, PRFAAS, Router, RouterConfig,
                                      RoutingDecision)
 from repro_torch.core.throughput_model import SystemConfig, ThroughputModel
-from repro_torch.core.transfer import LinkTopology, star_pairs
+from repro_torch.core.transfer import Link, LinkTopology, star_pairs
 from repro_torch.core.workload import Workload
 from repro_torch.models import Model
 from repro_torch.models.kvcache import (cache_num_bytes,
@@ -176,6 +176,12 @@ class CrossDCDeployment:
                                          device=self.prfaas.device)
             self._seed_ratio = (float(cache_num_bytes(probe))
                                 / float(quantize_cache_for_wire(probe)[1]))
+
+    @property
+    def link(self) -> Link:
+        """The first region's star link (the classic single inter-DC
+        link), as the reference's two-cluster alias."""
+        return self.topology.link(PRFAAS, self.pd_names[0])
 
     def _new_cache(self) -> HybridPrefixCache:
         return HybridPrefixCache(

@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.models.tree import tree_flatten_with_path
+from repro_torch.models.tree import tree_flatten_with_path, tree_map
 
 def _to_host(x):
     """A leaf as (numpy array that owns its bytes, dtype name)."""
@@ -128,10 +128,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like_tree, step: Optional[int] = None):
+    def restore(self, like_tree, step: Optional[int] = None,
+                shardings=None):
         """The checkpoint of ``step`` (the latest when None) in the
         structure of ``like_tree``, each tensor leaf on its like's device.
-        Returns (tree, manifest), or (None, None) with no checkpoint."""
+        ``shardings``: a tree like ``like_tree`` of ``(DeviceMesh,
+        placements)`` pairs (``distributed.sharding.device_shardings``);
+        each leaf is then re-sharded onto its mesh with
+        ``distribute_tensor``, so a checkpoint written on one mesh restores
+        onto another.  Returns (tree, manifest), or (None, None) with no
+        checkpoint."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None, None
@@ -143,4 +149,9 @@ class CheckpointManager:
             for key, like in tree_flatten_with_path(like_tree):
                 values[key] = _from_host(data[key],
                                          manifest["dtypes"][key], like)
-        return _unflatten(like_tree, values), manifest
+        tree = _unflatten(like_tree, values)
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+            tree = tree_map(lambda x, s: distribute_tensor(x, *s), tree,
+                            shardings)
+        return tree, manifest

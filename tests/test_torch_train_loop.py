@@ -10,7 +10,8 @@ qwen2.5 yet) with the same loop settings.
   * checkpoints restore bit-exactly (bfloat16 leaves through their bits),
     publish atomically, and keep the newest ``keep``;
   * ``python -m repro_torch.launch.train --smoke --device cpu`` runs and
-    prints the reference launcher's summary; ``--production-mesh`` raises.
+    prints the reference launcher's summary; ``--production-mesh`` refuses
+    a process without the production mesh's 256 ranks.
 """
 import dataclasses
 import json
@@ -151,10 +152,14 @@ def test_train_cli_runs(tmp_path):
     assert np.isfinite([summary["first_loss"], summary["final_loss"],
                         summary["mean_step_s"]]).all()
     assert CheckpointManager(str(tmp_path / "c")).latest_step() == 4
+    # the one-device layout's fingerprint, as the reference's launcher
+    # writes it for a 1 x 1 mesh
+    manifest = tmp_path / "c" / "step-00000004" / "manifest.json"
+    assert json.loads(manifest.read_text())["mesh"] == "data=1xmodel=1"
 
 
 def test_train_cli_refuses_production_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(RuntimeError, match="256 ranks"):
         train_cli.main(["--arch", "zamba2-1.2b", "--smoke", "--device",
                         "cpu", "--production-mesh",
                         "--ckpt-dir", str(tmp_path)])
