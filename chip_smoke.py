@@ -18,12 +18,15 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      path runs, and flash at h2o-danube's sliding window (head dim 80,
      window 4096, whole and as chunks after 4608 and 8192 keys); the dense
      and paged decode at the four group sizes the main paths run, MLA,
-     GQA at head dims 128 and 80, and MHA, and the paged one also at zamba2's
+     GQA at head dims 128 and 80, and MHA (and ring-2.5-1t's MLA at Dk
+     576 / Dv 512), and the paged one also at zamba2's
      decode block, 8 rows of 4000 tokens; the delta rule, rows 3 and 5, at
      its table shape and at the shapes the main paths run, kimi's prefill
      chunk and the recipe's float32 microbatch; gated linear attention,
      rows 6 and 7, at its table shapes and at zamba2's prefill chunk and
-     training microbatch; the int8 wire encode, row 4, at its table shape
+     training microbatch, xlstm-350m's mLSTM chunk and ring-2.5-1t's
+     Lightning heads (48 of dk 128 / dv 128, at Lightning's scale: keys
+     unscaled, decays near 1); the int8 wire encode, row 4, at its table shape
      by CUDA events and profiler device time, and at three requests'
      shapes read in place from their padded caches, mistral-nemo's and
      zamba2's 12000-token k / v and kimi's 4096-token latents, against the
@@ -61,13 +64,21 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
          [KDA, KDA, KDA, MLA] unit and the MoE to 32 of its 352 experts, so
          the bf16 weights, ~17.8 GB, fit the card), with the dense KV
          layout and then with paged KV;
+       * ``ring-2.5-1t`` at every published width (one 8-block unit, 7
+         Lightning (GLA) + 1 MLA, and 32 of its 384 experts: ~30.5 GB of
+         bf16 weights; ``ring_paths``), dense and paged, its greedy
+         replay, speculative decode (bf16 tokens gated equal to the plain
+         greedy ones), a profiled paged decode block and 4096-token
+         prefill, bf16 logits recorded, and the float32 2 % gates on a cut
+         of its first Lightning block and its MLA block;
        * ``mistral-nemo-12b`` at full width, depth cut to ``MISTRAL_LAYERS``
          (20 of 40 layers, ~13.6 GB of bf16 weights), paged, where the
          later turn resumes from the device pages of its cached prefix and
          prefills only its suffix;
-       * ``zamba2-1.2b`` at full width and depth (32 Mamba2 layers and a
-         shared attention + FFN block invoked 6 times, ~2.5 GB of bf16
-         weights), dense and then paged, with a page-aligned 4992-token
+       * ``zamba2-1.2b`` at full width, ``ZAMBA2_SERVING_UNITS`` (3 of 6)
+         units and the tail (20 of 38 layers: 17 Mamba2 and the shared
+         attention + FFN block invoked 3 times), dense and then paged,
+         with a page-aligned 4992-token
          session whose later turn, paged, pins 4992 cached tokens (pool
          pages and the Mamba2 state snapshot) and prefills 600;
        * ``h2o-danube-1.8b`` at full width, ``DANUBE_LAYERS`` (12 of 24)
@@ -135,20 +146,22 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      bits (``prefill_repeatability``, gated);
   5. compare logits through the kernels with those through the plain
      versions (largest difference within 2 % of the largest |logit|): one
-     prefill batch of kimi in bf16; one prefill batch and one paged decode
-     step of mistral-nemo-12b, of zamba2-1.2b and of h2o-danube-1.8b (its
-     prefill of 5000 tokens, past the window), recorded in bf16 and held
-     in float32 (over their 20-38 layers bf16 rounding flips compound by
+     prefill batch of kimi in bf16; ring's prefill and paged decode step
+     recorded in bf16 and held in float32 on its 2-block cut; one
+     prefill batch and one paged decode step of mistral-nemo-12b, of
+     zamba2-1.2b and of h2o-danube-1.8b (its prefill of 5000 tokens, past
+     the window), recorded in bf16 and held in float32 (over their 12-40
+     layers bf16 rounding flips compound by
      themselves: ~2 % on mistral-nemo at 40, ~11 % on zamba2's prefill, on
      an H100), and zamba2's bf16 prefill logits through the kernels no
      further from the float32 plain logits than 1.5x the plain bf16
      logits' distance; time the MLA paged decode's whole-pool [ckv, kpe]
      concatenation against a decode step; and profile one paged decode
-     block of mistral-nemo-12b and of zamba2-1.2b, replayed as a graph and
-     eager, and one 4096-token
-     prefill of kimi, mistral-nemo and zamba2 (``torch.profiler``: device
-     busy time, the largest kernels and the flash, decode, delta and GLA
-     kernels' shares); each profiled decode block (kimi's too) also as a
+     block of mistral-nemo-12b, of zamba2-1.2b and of ring-2.5-1t,
+     replayed as a graph and eager, and one 4096-token prefill of kimi,
+     ring, mistral-nemo and zamba2 (``torch.profiler``: device busy time,
+     the largest kernels and the flash, decode, delta and GLA kernels'
+     shares); each profiled decode block (kimi's too) also as a
      sampling graph, recorded beside the greedy one; the verify attention
      (three decode-kernel calls at mistral-nemo's GQA shape) against its
      one-pass plain version, gated at the bf16 tolerance; and that no
@@ -274,11 +287,13 @@ XLSTM_SESSION, XLSTM_EXT, XLSTM_CHUNK = 512, 128, 256
 # mistral-nemo-12b serves 20 of its 40 layers, h2o-danube-1.8b 12 of its
 # 24, xlstm-350m 6 of its 12 [mLSTM, sLSTM] pairs, and zamba2-1.2b trains
 # 2 of its 6 [5 x Mamba2, shared block] units and its 2-layer tail (14 of
-# 38 layers)
+# 38 layers); since the ring phase, zamba2-1.2b also serves 3 of its 6
+# units and the tail (20 of 38 layers; its launcher phase keeps all 38)
 MISTRAL_LAYERS = 20
 DANUBE_LAYERS = 12
 XLSTM_PAIRS = 6
 ZAMBA2_TRAIN_UNITS = 2
+ZAMBA2_SERVING_UNITS = 3
 # the train_more phase's cuts, every width and expert kept: mixtral-8x22b
 # trains 1 of its 56 layers (2.91 B params: bf16 params and grads and
 # AdamW's float32 moments and master, ~46.6 GB, fit the card) and
@@ -332,7 +347,9 @@ def _nbytes(*ts) -> int:
 # kimi's absorbed MLA, mistral-nemo's GQA, h2o-danube's GQA at head dim 80
 # (its ring holds at most 4096 keys and takes no window) and zamba2's MHA;
 # then llama4's and mixtral's GQA (G 5 and 6: the stream's 8-head
-# instance) and phi-3's MHA at head dim 96, also checked in float32
+# instance) and phi-3's MHA at head dim 96, also checked in float32; and
+# ring-2.5-1t's absorbed MLA (latent rank 512 + rope 64: Dk 576, Dv 512,
+# the core's largest Dv, every padded column live)
 CHECK_LENGTHS = (16384, 12001, 9000, 5601, 3800, 1501, 701, 101)
 NEW_DECODE_GROUPS = (("GQA_G5", 40, 8, 128, 128, 128 ** -0.5),
                      ("GQA_G6", 48, 8, 128, 128, 128 ** -0.5),
@@ -340,7 +357,8 @@ NEW_DECODE_GROUPS = (("GQA_G5", 40, 8, 128, 128, 128 ** -0.5),
 DECODE_GROUPS = (("MLA", 64, 1, 536, 472, 192 ** -0.5),
                  ("GQA", 32, 8, 128, 128, 128 ** -0.5),
                  ("GQA80", 32, 8, 80, 80, 80 ** -0.5),
-                 ("MHA", 32, 32, 64, 64, 64 ** -0.5)) + NEW_DECODE_GROUPS
+                 ("MHA", 32, 32, 64, 64, 64 ** -0.5)) + NEW_DECODE_GROUPS \
+    + (("MLA576", 64, 1, 576, 512, 192 ** -0.5),)
 # the flash kernel's shapes on the paths of llama4 (GQA, G 5), mixtral
 # (G 6, window 4096, the logit checks' 5000-token prefill), phi-3 (MHA at
 # head dim 96 over 576 patches and 2000 tokens) and seamless (its
@@ -585,25 +603,54 @@ def scan_entry(torch, dev, g, close, atol_needed, name, source, replaces,
 # timed at in the table, and the shapes the main paths run it at (zamba2's
 # 4096-token prefill chunk, masked; its 2048-token training microbatch,
 # unmasked; xlstm-350m's 256-token mLSTM prefill chunk, 4 heads of dk 256
-# and dv 257, the normaliser's ones column included)
+# and dv 257, the normaliser's ones column included; ring-2.5-1t's
+# Lightning prefill chunk, 48 heads of 128 / 128, and the same heads over
+# a 2048-token training row, both drawn at Lightning's scale, "lightning")
 GLA_SHAPES = {
     "row7_table": ("gla_chunked_fused", (2, 32, 4096), (4096, 2500)),
     "row7_zamba2_prefill": ("gla_chunked_fused", (1, 32, 4096), (4096,)),
     "row7_xlstm_prefill": ("gla_chunked_fused", (1, 4, XLSTM_CHUNK),
                            (XLSTM_CHUNK,), (256, 257)),
+    "row7_ring_prefill": ("gla_chunked_fused", (1, 48, 4096), (4096,),
+                          (128, 128), "lightning"),
     "row6_table": ("gla_chunked", (2, 32, 2048), None),
     "row6_zamba2_train": ("gla_chunked", (1, 32, 2048), None),
+    "row6_ring_train": ("gla_chunked", (1, 48, 2048), None, (128, 128),
+                        "lightning"),
 }
+
+
+def lightning_inputs(torch, dev, g, B, H, S, dk, dv):
+    """q, k, v, log_a and a state as ring-2.5-1t's Lightning mixer gives
+    them at its init: q, k and v are SiLU of the conv of unit-variance
+    projections (``silu`` of a standard normal; keys unscaled, so q . k
+    runs ~11x Mamba2's), the decay ``logsigmoid(z + 4)`` of a standard
+    normal z (~-0.018 a token: decays near 1 across a 64-row chunk; in
+    multiples of 2^-14, so every cumulative sum is exact and the kernel
+    and the plain version share them) and the state such a history leaves
+    (the mean k v^T over the decay's ~55-token horizon, ~2.3, plus noise),
+    all bf16 but log_a and the state (float32)."""
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    q, k, v = (F.silu(randn(B, H, S, d)).to(torch.bfloat16)
+               for d in (dk, dk, dv))
+    la = torch.round(F.logsigmoid(randn(B, H, S) + 4.0) * 2.0 ** 14) \
+        / 2.0 ** 14
+    s0 = 2.3 + randn(B, H, dk, dv)
+    return q, k, v, la, s0
 
 
 def gla_case(torch, dev, g, tag):
     """One of GLA_SHAPES: its inputs (q, k at the Mamba2 scale, decays
-    from mild to strong in multiples of 2^-10, a nonzero state), the
-    kernel and its plain version as callables over them, the rows below
-    the lengths, and the bound: each valid row's q, k, v, o and log_a
-    once, the state in and out and the lengths, against the FLOPs of the
-    causal Q K^T and A V, q S and the state update at the bf16
-    tensor-core rate."""
+    from mild to strong in multiples of 2^-10, a nonzero state; or
+    Lightning's, ``lightning_inputs``), the kernel and its plain version
+    as callables over them, the rows below the lengths, and the bound:
+    each valid row's q, k, v, o and log_a once, the state in and out and
+    the lengths, against the FLOPs of the causal Q K^T and A V, q S and
+    the state update at the bf16 tensor-core rate."""
     from repro_torch.kernels import gla as kg
 
     name, (B, H, S), lens, *head = GLA_SHAPES[tag]
@@ -612,14 +659,18 @@ def gla_case(torch, dev, g, tag):
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev) * scale
 
-    q = randn(B, H, S, dk).to(torch.bfloat16)
-    k = randn(B, H, S, dk, scale=dk ** -0.5).to(torch.bfloat16)
-    v = randn(B, H, S, dv).to(torch.bfloat16)
-    # decays in multiples of 2^-10: every cumulative sum is exact, so the
-    # kernel and the plain version share them
-    la = torch.round(-2048.0 * torch.rand(
-        (B, H, S), generator=g, device=dev) ** 3) / 1024
-    s0 = randn(B, H, dk, dv, scale=0.5)
+    lightning = head[1:] == ["lightning"]
+    if lightning:
+        q, k, v, la, s0 = lightning_inputs(torch, dev, g, B, H, S, dk, dv)
+    else:
+        q = randn(B, H, S, dk).to(torch.bfloat16)
+        k = randn(B, H, S, dk, scale=dk ** -0.5).to(torch.bfloat16)
+        v = randn(B, H, S, dv).to(torch.bfloat16)
+        # decays in multiples of 2^-10: every cumulative sum is exact, so
+        # the kernel and the plain version share them
+        la = torch.round(-2048.0 * torch.rand(
+            (B, H, S), generator=g, device=dev) ** 3) / 1024
+        s0 = randn(B, H, dk, dv, scale=0.5)
     if lens is None:
         lengths = None
         valid = torch.ones((B, H, S), dtype=torch.bool, device=dev)
@@ -649,6 +700,7 @@ def gla_case(torch, dev, g, tag):
                  chunks * per_chunk, BF16_FLOP_S)
     shape = (f"q,k ({B},{H},{S},{dk}) v ({B},{H},{S},{dv}) bf16, log_a f32, "
              f"state ({B},{H},{dk},{dv}) f32 nonzero, "
+             + ("at Lightning's scale, " if lightning else "")
              + ("no lengths" if lens is None
                 else "lengths " + ", ".join(map(str, lens))))
     return dict(name=name, run=run, plain=plain, valid=valid, bound=bnd,
@@ -2230,8 +2282,9 @@ def decode_batch_variance(torch, dev):
     core serves: mistral-nemo's GQA (G 4, the stream), h2o-danube's (G 4
     at head dim 80), qwen2.5's (G 8, the stream's 8-head instance),
     llama4's and mixtral's (G 5 and 6, the same instance with idle heads),
-    granite's MQA (G 48, one 64-row tensor-core tile), kimi's absorbed MLA
-    (G 64), zamba2's MHA (G 1) and phi-3's at head dim 96; float32 at the
+    granite's MQA (G 48, one 64-row tensor-core tile), kimi's and
+    ring-2.5-1t's absorbed MLA (G 64; Dk / Dv 536 / 472 and 576 / 512),
+    zamba2's MHA (G 1) and phi-3's at head dim 96; float32 at the
     GQA shape (the SIMT core).  Gated: no row may move."""
     from repro_torch.kernels import ops
 
@@ -2248,6 +2301,7 @@ def decode_batch_variance(torch, dev):
             ("mha_d96_bf16", torch.bfloat16, 32, 32, 96, 96),
             ("mqa_g48_bf16", torch.bfloat16, 48, 1, 128, 128),
             ("mla_bf16", torch.bfloat16, 64, 1, 536, 472),
+            ("mla576_bf16", torch.bfloat16, 64, 1, 576, 512),
             ("mha_bf16", torch.bfloat16, 32, 32, 64, 64),
             ("gqa_f32", torch.float32, 32, 8, 128, 128)):
         q = torch.randn((8, Hq, Dk), generator=g, device=dev).to(dtype)
@@ -2492,6 +2546,15 @@ def depth_cut(cfg, repeats: int):
         g, repeats=repeats),))
 
 
+def zamba2_config(units: int):
+    """zamba2-1.2b at every published width, ``units`` of its 6 [5 x
+    Mamba2, shared block] units and its 2-layer Mamba2 tail."""
+    from repro_torch.configs import get_config
+    cfg = get_config("zamba2-1.2b")
+    return dataclasses.replace(cfg, groups=(dataclasses.replace(
+        cfg.groups[0], repeats=units),) + cfg.groups[1:])
+
+
 def llama4_config(layers: int = 8):
     """llama4-scout-17b-a16e at every published width (d_model 5120, GQA
     40 / 8 heads of 128, all 16 experts of d_ff 8192 top-1 plus the shared
@@ -2521,6 +2584,24 @@ def kimi_config():
     return dataclasses.replace(cfg, groups=groups)
 
 
+def ring_config(blocks=None):
+    """ring-2.5-1t at every published width (d_model 7168, 48 Lightning
+    heads of 128 / 128, MLA 64 x 128 heads over a 512 latent with rope dim
+    64, d_ff 2048, vocab 157184, top-8 of its experts and a shared one),
+    one 8-block unit deep (7 Lightning + 1 MLA) and 32 of its 384 experts
+    per MoE FFN: 15.25 B params, ~30.5 GB in bf16.  ``blocks``: only those
+    of the unit's blocks (by index), in order."""
+    from repro_torch.configs.profiles import ring_2_5_1t
+    cfg = ring_2_5_1t()
+    (g,) = cfg.groups
+    unit = tuple(dataclasses.replace(b, ffn=dataclasses.replace(
+        b.ffn, num_experts=32)) for b in g.blocks)
+    if blocks is not None:
+        unit = tuple(unit[i] for i in blocks)
+    return dataclasses.replace(cfg, groups=(dataclasses.replace(
+        g, blocks=unit, repeats=1),))
+
+
 def load_params(torch, dev, cfg, seed):
     from repro_torch.params import init_params
     t0 = time.perf_counter()
@@ -2533,16 +2614,81 @@ def load_params(torch, dev, cfg, seed):
     return params
 
 
-def zamba2_paths(torch, dev, paths, launches):
-    """zamba2-1.2b at full width and depth (38 layers: 32 Mamba2, the
-    shared attention + FFN block invoked 6 times), dense and then paged,
-    with a 4992-token (page-aligned) session: on the paged path its later
-    turn resumes from the device pages and the Mamba2 state snapshot and
-    prefills only its 600-token suffix.  Then the logit checks: bf16
-    recorded, the 2 % gate held in float32."""
-    from repro_torch.configs import get_config
+def ring_paths(torch, dev, paths, launches):
+    """ring-2.5-1t (``ring_config``: every published width, one 8-block
+    unit, 32 experts) served as kimi's is: the PrfaaS loop dense then
+    paged (``main_path``: the Lightning mixers on the masked GLA kernel,
+    row 7, at dk 128; the MLA prefill on flash, its absorbed decode on the
+    decode or paged decode kernel at Dk 576 / Dv 512; the latents on the
+    wire encode), each path's greedy replay, speculative decode on both
+    layouts (the scan verify: bf16 tokens gated equal to the plain greedy
+    ones), a profiled paged decode block (8 slots at 4000 tokens) and
+    4096-token prefill, and the logit checks in bf16, recorded; then the
+    2 % float32 gates of the prefill and a paged decode step on a cut of
+    the unit's first Lightning block and its MLA block (~22 GB in
+    float32)."""
+    cfg = ring_config()
+    params = load_params(torch, dev, cfg, 9)
+    for layout, paged, need in (
+            ("dense", False, ("flash_attention", "decode_attention",
+                              "gla_chunked_fused", "quantize_int8_fused")),
+            ("paged", True, ("flash_attention", "paged_decode_attention",
+                             "gla_chunked_fused", "quantize_int8_fused"))):
+        tag = f"ring_{layout}"
+        summary, counts, dep = main_path(torch, dev, cfg, params,
+                                         paged=paged)
+        del dep
+        require_launched(counts, need, tag)
+        paths[tag] = summary
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        print(f"{tag}: {summary['wall_s']:.2f} s wall, peak "
+              f"{summary['peak_memory_gb']:.1f} GB, launches {counts}",
+              flush=True)
+        paths[f"{tag}_replay"] = check_replay(torch, dev, cfg, params,
+                                              paged=paged)
+        print(f"{tag}_replay: {paths[f'{tag}_replay']}", flush=True)
+        gc_cuda(torch)
+    for layout, res in check_spec(torch, dev, cfg, params, launches=launches,
+                                  gate_identity=(False, True)).items():
+        paths[f"ring_{layout}_spec"] = res
+    gc_cuda(torch)
+    block = profile_decode_block(torch, dev, cfg, params)
+    paths["ring_decode_profile"] = block
+    paths["ring_prefill_profile"] = profile_prefill(torch, dev, cfg, params)
+    print(f"ring profiles: decode block graph wall / busy "
+          f"{block['graph']['wall_ms']:.1f} / "
+          f"{block['graph']['device_busy_ms_profiled']:.1f} ms; 4096-token "
+          f"prefill {paths['ring_prefill_profile']['wall_ms']:.1f} ms, GLA "
+          f"{paths['ring_prefill_profile']['gla_share_of_busy']:.3f} of "
+          f"busy", flush=True)
+    paths["ring_logits_bf16"] = compare_logits(torch, dev, cfg, params,
+                                               gate=False)
+    paths["ring_paged_step_bf16"] = compare_paged_step(torch, dev, cfg,
+                                                       params, gate=False)
+    del params
+    gc_cuda(torch)
+    cut = dataclasses.replace(ring_config(blocks=(0, 7)), dtype="float32")
+    params = load_params(torch, dev, cut, 9)
+    paths["ring_logits_f32_2_blocks"] = compare_logits(torch, dev, cut,
+                                                       params)
+    paths["ring_paged_step_f32_2_blocks"] = compare_paged_step(
+        torch, dev, cut, params)
+    print(f"ring logits: bf16 {paths['ring_logits_bf16']}, float32 "
+          f"{paths['ring_logits_f32_2_blocks']}", flush=True)
+    del params
+    gc_cuda(torch)
 
-    cfg = get_config("zamba2-1.2b")
+
+def zamba2_paths(torch, dev, paths, launches):
+    """zamba2-1.2b at full width, ``ZAMBA2_SERVING_UNITS`` of its 6 units
+    and its tail (20 of 38 layers: 17 Mamba2, the shared attention + FFN
+    block invoked 3 times), dense and then paged, with a 4992-token
+    (page-aligned) session: on the paged path its later turn resumes from
+    the device pages and the Mamba2 state snapshot and prefills only its
+    600-token suffix.  Then the logit checks: bf16 recorded, the 2 % gate
+    held in float32."""
+    cfg = zamba2_config(ZAMBA2_SERVING_UNITS)
     params = load_params(torch, dev, cfg, 2)
     for tag, paged, need in (
             ("zamba2_dense", False, ("flash_attention", "decode_attention",
@@ -3110,7 +3256,6 @@ def zamba2_train(torch, dev):
     versions')."""
     import math
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.models import Model
     from repro_torch.params import requires_grad
@@ -3118,9 +3263,7 @@ def zamba2_train(torch, dev):
                                       TrainConfig, init_opt_state,
                                       loss_and_grads, make_train_step)
 
-    cfg = get_config("zamba2-1.2b")
-    cfg = dataclasses.replace(cfg, groups=(dataclasses.replace(
-        cfg.groups[0], repeats=ZAMBA2_TRAIN_UNITS),) + cfg.groups[1:])
+    cfg = zamba2_config(ZAMBA2_TRAIN_UNITS)
     params = requires_grad(load_params(torch, dev, cfg, 3))
     tc = TrainConfig(microbatches=2, adamw=AdamWConfig(
         lr=3e-4, warmup_steps=2, total_steps=4))
@@ -3548,9 +3691,7 @@ def dryrun_shares(torch, paths, calib):
 
     meta = torch.device("meta")
     mistral = depth_cut(get_config("mistral-nemo-12b"), MISTRAL_LAYERS)
-    zamba2 = get_config("zamba2-1.2b")
-    zamba2 = dataclasses.replace(zamba2, groups=(dataclasses.replace(
-        zamba2.groups[0], repeats=ZAMBA2_TRAIN_UNITS),) + zamba2.groups[1:])
+    zamba2 = zamba2_config(ZAMBA2_TRAIN_UNITS)
 
     def prefill(cfg):
         model, params = Model(cfg), input_specs.params_specs(cfg)
@@ -3759,6 +3900,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase("kimi")
+    # ring-2.5-1t: the Lightning (GLA) mixer beside MLA, at every width
+    ring_paths(torch, dev, paths, launches)
+    gc_cuda(torch)
+    phase("ring")
 
     # mistral-nemo-12b at full width, MISTRAL_LAYERS deep, paged, with a
     # prefix hit

@@ -4,7 +4,7 @@ kernel's wrapper.
 
     S_t = exp(log_a_t) S_{t-1} + k_t v_t^T ,   o_t = q_t S_t
 
-It serves Mamba2 (SSD), and later GLA and mLSTM.  The kernel
+It serves Mamba2 (SSD), GLA (Lightning) and mLSTM.  The kernel
 (``csrc/gla.cu``; bf16 over the core ``csrc/gla_hopper.cuh``) has two
 instances: :func:`gla_chunked_fused` replaces the TPU kernel
 ``src/repro/kernels/gla.py::gla_chunked_fused`` (rows past ``lengths``

@@ -1,13 +1,14 @@
-"""Bounded-state sequence mixers: KDA/GDN (the gated delta rule), Mamba2
-(SSD as gated linear attention with a scalar per-head decay) and xLSTM's
-two cells: mLSTM (the same gated linear attention with sigmoid input and
-forget gates, its normaliser carried as a ones column of the values, so
-the state is (dk, dv + 1)) and sLSTM (scalar memory whose gates read the
-previous output: a true per-token recurrence, plain PyTorch as in the
-reference, which has no kernel for it).
+"""Bounded-state sequence mixers: KDA/GDN (the gated delta rule), GLA
+(Lightning attention: gated linear attention with a sigmoid forget gate,
+keys unscaled), Mamba2 (SSD as gated linear attention with a scalar
+per-head decay) and xLSTM's two cells: mLSTM (the same gated linear
+attention with sigmoid input and forget gates, its normaliser carried as a
+ones column of the values, so the state is (dk, dv + 1)) and sLSTM (scalar
+memory whose gates read the previous output: a true per-token recurrence,
+plain PyTorch as in the reference, which has no kernel for it).
 
-Counterpart of ``src/repro/models/linear_attention.py``; the remaining
-kind (GLA) raises ``NotImplementedError``.
+Counterpart of ``src/repro/models/linear_attention.py``, every kind of
+``LinearSpec``.
 """
 from __future__ import annotations
 
@@ -18,13 +19,13 @@ from repro_torch.configs.base import LinearSpec
 from repro_torch.kernels import ops
 from repro_torch.models.layers import causal_conv1d, rms_norm
 
-SUPPORTED = ("kda", "gdn", "mamba2", "mlstm", "slstm")
+SUPPORTED = ("kda", "gdn", "gla", "mamba2", "mlstm", "slstm")
 
 
 def _check(spec: LinearSpec):
     if spec.kind not in SUPPORTED:
-        raise NotImplementedError(f"linear mixer {spec.kind!r} is not ported "
-                                  f"yet (ported: {SUPPORTED})")
+        raise ValueError(f"unknown linear mixer {spec.kind!r} (known: "
+                         f"{SUPPORTED})")
 
 
 def _heads(x, H, D):
@@ -81,9 +82,11 @@ def _qkv(p, x, spec: LinearSpec, conv_state=None, lengths=None):
 
 def _gates_full(p, x, spec: LinearSpec):
     """Per-token per-head (log_a <= 0, beta), each (B, H, S) float32;
-    beta is None for Mamba2 and mLSTM, which have no write strength."""
-    if spec.kind == "mlstm":
-        log_a = F.logsigmoid((x @ p["f_proj"]["w"]).float() + 4.0)
+    beta is None for GLA, Mamba2 and mLSTM, which have no write strength.
+    GLA's and mLSTM's decay is a sigmoid forget gate biased open (+4)."""
+    if spec.kind in ("gla", "mlstm"):
+        gate = p["a_proj" if spec.kind == "gla" else "f_proj"]["w"]
+        log_a = F.logsigmoid((x @ gate).float() + 4.0)
         return log_a.transpose(1, 2), None
     dt = _softplus(x @ p["a_proj"]["w"] + p["dt_bias"].to(x.dtype))
     log_a = -torch.exp(p["A_log"].float()) * dt.float()
@@ -160,11 +163,14 @@ def linear_forward(p, x, spec: LinearSpec, *, initial_state=None,
         o_aug, state = ops.gla(q, k, _with_ones(v), log_a, initial_state,
                                lengths=lengths, use_kernel=use_kernels)
         o = _normalised(o_aug, v.dtype)
-    elif spec.kind == "mamba2":
-        k = k * (spec.key_dim ** -0.5)
+    elif spec.kind in ("gla", "mamba2"):
+        # GLA's keys go in unscaled and it has no skip term
+        if spec.kind == "mamba2":
+            k = k * (spec.key_dim ** -0.5)
         o, state = ops.gla(q, k, v, log_a, initial_state, lengths=lengths,
                            use_kernel=use_kernels)
-        o = _d_skip(p, o, v)
+        if spec.kind == "mamba2":
+            o = _d_skip(p, o, v)
     else:
         k = _l2norm(k)
         q = _l2norm(q)
@@ -193,10 +199,12 @@ def linear_decode(p, x, spec: LinearSpec, cache):
         o_aug, state = ops.gla_step(q1, k1, _with_ones(v1), log_a[:, :, 0],
                                     cache["state"])
         o = _normalised(o_aug, v1.dtype)
-    elif spec.kind == "mamba2":
-        k1 = k1 * (spec.key_dim ** -0.5)
+    elif spec.kind in ("gla", "mamba2"):
+        if spec.kind == "mamba2":
+            k1 = k1 * (spec.key_dim ** -0.5)
         o, state = ops.gla_step(q1, k1, v1, log_a[:, :, 0], cache["state"])
-        o = _d_skip(p, o, v1)
+        if spec.kind == "mamba2":
+            o = _d_skip(p, o, v1)
     else:
         k1 = _l2norm(k1)
         q1 = _l2norm(q1)

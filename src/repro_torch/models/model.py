@@ -21,9 +21,7 @@ block tables.
 The serving path's MoE is the exact dropless form (the reference's
 inference default; a perf variant's token cap sends a larger batch to the
 capacity form): a sorted loop over experts in prefill, every expert at
-once in decode, where it must not sync the host.  A mixer kind the port
-does not have (the GLA mixer kind) raises ``NotImplementedError`` at
-construction.
+once in decode, where it must not sync the host.
 
 An encoder-decoder (``cfg.encoder_groups``: ``batch["frames"]`` through
 ``enc_proj``, sinusoidal positions, the encoder's bidirectional groups and

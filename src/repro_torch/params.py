@@ -127,7 +127,7 @@ def _block(dr, lead, d, spec: BlockSpec):
               "b_gates": dr.const(lead + (4 * H * dv,), 0.0),
               "wo": _linear(dr, lead, H * dv, d),
               "g_norm": dr.const(lead + (H * dv,), 1.0)}
-    else:                                     # KDA / GDN / Mamba2 / mLSTM
+    else:                                 # KDA / GDN / GLA / Mamba2 / mLSTM
         H, dk, dv = m.heads, m.key_dim, m.value_dim
         mx = {"wq": _linear(dr, lead, d, H * dk),
               "wk": _linear(dr, lead, d, H * dk),
@@ -140,6 +140,7 @@ def _block(dr, lead, d, spec: BlockSpec):
             mx["f_proj"] = _linear(dr, lead, d, H)
         else:
             mx["a_proj"] = _linear(dr, lead, d, H)
+        if m.kind in ("kda", "gdn", "mamba2"):   # GLA's gate has no rate
             mx["A_log"] = dr.const(lead + (H,), 0.0)
             mx["dt_bias"] = dr.const(lead + (H,), 0.0)
         if m.kind == "mamba2":

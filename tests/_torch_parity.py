@@ -43,6 +43,20 @@ def configs(q_rank: int = 0, arch: str = ARCH):
     return jcfg, tcfg
 
 
+def profile_configs(name: str):
+    """(reference config, port config) of the paper's profile model
+    ``name`` (``configs/profiles.py::PROFILE_MODELS``), float32 smoke
+    size."""
+    from repro.configs import profiles as jprofiles
+    from repro.configs.base import reduce_for_smoke as jax_reduce
+    from repro_torch.configs import profiles
+    from repro_torch.configs.base import reduce_for_smoke
+    jcfg = jax_reduce(jprofiles.PROFILE_MODELS[name]())
+    tcfg = reduce_for_smoke(profiles.PROFILE_MODELS[name]())
+    assert jcfg.dtype == tcfg.dtype == "float32"
+    return jcfg, tcfg
+
+
 def nonzero_mamba2_gates(tree, seed: int = 0):
     """The numpy param tree with every Mamba2 mixer's ``A_log``,
     ``dt_bias`` and ``D_skip`` drawn from a seed (the reference inits them

@@ -371,6 +371,47 @@ def test_gla_at_xlstm_shapes_matches_plain(cuda, dtype, B, S, lens):
     _gla_check((q, k, v, la, s0), lengths, o, st, dtype, cuda)
 
 
+def _lightning_inputs(g, B, H, S, dk, dv, dev):
+    """ring-2.5-1t's Lightning mixer's inputs at its init: q, k, v the SiLU
+    of unit normals (keys unscaled: q . k ~11x the Mamba2 scale's), decays
+    logsigmoid(z + 4) of a unit normal z (~-0.018 a token, near 1 across
+    a 64-row chunk; multiples of 2^-14, so their cumulative sums are
+    exact) and the state such a history leaves (~2.3 plus noise)."""
+    q, k, v = (torch.nn.functional.silu(_randn(g, (B, H, S, d),
+                                               torch.float32, dev))
+               .to(torch.bfloat16) for d in (dk, dk, dv))
+    z = _randn(g, (B, H, S), torch.float32, dev)
+    la = torch.round(torch.nn.functional.logsigmoid(z + 4.0)
+                     * 2.0 ** 14) / 2.0 ** 14
+    return q, k, v, la, 2.3 + _randn(g, (B, H, dk, dv), torch.float32, dev)
+
+
+@pytest.mark.parametrize("B,S,lens", [(1, 4096, (4096,)),
+                                      (2, 3000, (3000, 1777)),
+                                      (1, 2048, None)])
+def test_gla_at_ring_shapes_matches_plain(cuda, B, S, lens):
+    """Rows 7 (with lengths) and 6 (without) at ring-2.5-1t's Lightning
+    heads, 48 of dk 128 / dv 128 (the core's dk-128 instance), bf16, at
+    Lightning's scale; with lengths, each row's state also equals the
+    unmasked kernel's over that row's prompt alone (padding leaves the
+    state: decay 1, key 0)."""
+    g = torch.Generator(device=cuda).manual_seed(33)
+    q, k, v, la, s0 = _lightning_inputs(g, B, 48, S, 128, 128, cuda)
+    if lens is None:
+        o, st = gla_chunked(q, k, v, la, s0)
+        torch.cuda.synchronize()
+        _gla_check((q, k, v, la, s0), None, o, st, torch.bfloat16, cuda)
+        return
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    o, st = gla_chunked_fused(q, k, v, la, lengths, s0)
+    torch.cuda.synchronize()
+    _gla_check((q, k, v, la, s0), lengths, o, st, torch.bfloat16, cuda)
+    for b, L in enumerate(lens):
+        _, alone = gla_chunked(*(t[b:b + 1, :, :L].contiguous()
+                                 for t in (q, k, v, la)), s0[b:b + 1])
+        torch.testing.assert_close(st[b:b + 1], alone, atol=1e-4, rtol=1e-3)
+
+
 def test_gla_op_routes_cuda_tensors_to_the_kernel(cuda):
     build.reset_launches()
     g = torch.Generator(device=cuda).manual_seed(9)
