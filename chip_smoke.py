@@ -205,7 +205,19 @@ the reference package ``src/repro``).  Phases, each fatal on failure:
      loss and grad norm through the kernels against the plain versions,
      gated, with the routing decisions that differ; each run's aux,
      dropped pairs and peak memory printed;
-  9. ``dryrun``: the work of five steps the earlier phases timed, counted
+   8b. ``sharded``: the sharded train step (``distributed/spmd.py``:
+     params, AdamW state and batch as DTensors placed by the sharding
+     rules, FSDP) on the (1, 1) ("data", "model") mesh of one card, on a
+     world-1 NCCL group, against the one-device step from the same params
+     and batch (``sharded_train``): zamba2-1.2b (``ZAMBA2_TRAIN_UNITS``, 2
+     x 2048 tokens) with its bf16 loss and gradient bits recorded and its
+     float32 step gated (loss and grad norm within 1e-5 relative, every
+     param within 1e-4 abs / 1e-3 rel), the flash and unmasked gla kernels
+     launched inside the sharded step; then the KDA:MLA recipe at 100m in
+     float32 (2 x 1024 tokens; flash and unmasked delta); each step's
+     time and peak memory, the collectives ``CommDebugMode`` counts and
+     the host seconds in DTensor's Python frames recorded;
+ 9. ``dryrun``: the work of five steps the earlier phases timed, counted
      on the ``meta`` device at the same cuts (``dryrun_shares``,
      ``repro_torch.analysis.counting``): kimi's and mistral-nemo's
      4096-token prefills, their 8-slot x 4000-token decode blocks of 8
@@ -3646,6 +3658,185 @@ def train_more(torch, dev):
 # share of the bound and the error at each checked shape (rows 1 and 9),
 # the GQA shape's numbers (row 8), device time, each pass's and the
 # request shapes' numbers (row 4)
+def _clone_tree(tree):
+    from repro_torch.models.tree import tree_map
+    return tree_map(lambda x: x.detach().clone(), tree)
+
+
+def _dtensor_host_s(fn):
+    """``fn()`` under ``cProfile``: (its wall seconds so profiled, the
+    seconds spent in the frames of ``torch/distributed/tensor``, DTensor's
+    Python dispatch and sharding propagation)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+    own = sum(tt for (file, _, _), (_, _, tt, _, _) in stats.items()
+              if "torch/distributed/tensor" in file)
+    return wall, own
+
+
+def sharded_compare(torch, dev, mesh, cfg, params, tc, batch, need, tag):
+    """One train step on ``mesh`` through ``make_sharded_train_step`` and
+    one through the one-device ``make_train_step``, from copies of the same
+    ``params`` and the same ``batch``.  In float32 the loss (1e-5
+    relative), the grad norm (1e-5 relative) and every updated param (1e-4
+    abs / 1e-3 rel, the tolerances of ``tests/test_torch_train_step.py``)
+    are gated and ``need``'s kernels must launch inside the sharded step;
+    in bf16, whether the loss and each gradient leaf are the same bits is
+    recorded.  Each step's wall time (after a first step of each, not
+    timed) and peak memory, the collectives ``CommDebugMode`` counts in
+    the sharded step, and its host time in DTensor's Python frames
+    (``_dtensor_host_s``) are recorded."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.distributed import spmd
+    from repro_torch.kernels import build
+    from repro_torch.models import Model
+    from repro_torch.models.tree import tree_flatten_with_path
+    from repro_torch.params import requires_grad
+    from repro_torch.training import (init_opt_state, loss_and_grads,
+                                      make_train_step)
+
+    model = Model(cfg, use_kernels=True, remat=True)
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "params": cfg.param_count(),
+           "batch": list(batch["tokens"].shape)}
+    if cfg.dtype != "float32":
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        sp = requires_grad(spmd.shard_params(_clone_tree(params), mesh))
+        with implicit_replication():
+            ls, _, gs = loss_and_grads(spmd.Gathered(model), sp,
+                                       spmd.shard_batch(batch, mesh))
+            ls, gs = ls.full_tensor(), spmd.gather_tree(gs)
+        lp, _, gp = loss_and_grads(model, requires_grad(params),
+                                   {k: torch.as_tensor(v).to(dev)
+                                    for k, v in batch.items()})
+        pairs = list(zip(tree_flatten_with_path(gs),
+                         tree_flatten_with_path(gp)))
+        out.update(loss_sharded=float(ls), loss_one_device=float(lp),
+                   loss_same_bits=bool(torch.equal(ls, lp)),
+                   grad_leaves=len(pairs),
+                   grad_leaves_same_bits=sum(
+                       bool(torch.equal(a, b)) for (_, a), (_, b) in pairs))
+        return out
+
+    runs = {}
+    for name in ("one_device", "sharded"):
+        p = requires_grad(_clone_tree(params))
+        state = init_opt_state(p, tc)
+        if name == "sharded":
+            state = spmd.shard_opt_state(state, mesh)
+            p = requires_grad(spmd.shard_params(p, mesh))
+            step = spmd.make_sharded_train_step(model, tc, mesh)
+        else:
+            step = make_train_step(model, tc)
+        for first in (True, False):
+            run_p, run_s = requires_grad(_clone_tree(p)), _clone_tree(state)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            if name == "sharded" and first:
+                with CommDebugMode() as comm:
+                    run_p, run_s, m = step(run_p, run_s, batch)
+                out["collectives"] = {str(k): v for k, v in
+                                      comm.get_comm_counts().items()}
+            else:
+                run_p, run_s, m = step(run_p, run_s, batch)
+            torch.cuda.synchronize()
+            runs[name] = dict(
+                params=run_p, metrics={k: float(v) for k, v in m.items()},
+                step_s=time.perf_counter() - t0,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=dict(build.LAUNCHES))
+            del run_s
+        if name == "sharded":
+            run_p, run_s = requires_grad(_clone_tree(p)), _clone_tree(state)
+            out["profiled_step_s"], out["dtensor_host_s"] = _dtensor_host_s(
+                lambda: step(run_p, run_s, batch))
+            del run_p, run_s
+        del p, state
+        gc_cuda(torch)
+    one, sh = runs["one_device"], runs["sharded"]
+    require_launched(sh["launches"], need, f"{tag} sharded step")
+    for key in ("step_s", "peak_gb", "launches", "metrics"):
+        out[f"{key}_one_device"], out[f"{key}_sharded"] = one[key], sh[key]
+    worst = 0.0
+    for (path, a), (_, b) in zip(
+            tree_flatten_with_path(spmd.gather_tree(sh["params"])),
+            tree_flatten_with_path(one["params"])):
+        a, b = a.detach().float(), b.detach().float()
+        worst = max(worst, float((a - b).abs().max()))
+        if not torch.all((a - b).abs() <= 1e-4 + 1e-3 * b.abs()):
+            fail(f"{tag}: the sharded step's {path} is further than 1e-4 "
+                 f"abs + 1e-3 rel from the one-device step's")
+    out["param_max_abs_diff"] = worst
+    for key in ("loss", "grad_norm"):
+        a, b = sh["metrics"][key], one["metrics"][key]
+        out[f"{key}_rel_diff"] = abs(a - b) / abs(b)
+        if not out[f"{key}_rel_diff"] <= 1e-5:
+            fail(f"{tag}: the sharded step's {key} {a} is not within 1e-5 "
+                 f"of the one-device step's {b}")
+    return out
+
+
+def sharded_train(torch, dev):
+    """Phase 8b: the sharded train step (``distributed/spmd.py``) on the
+    mesh one card allows, the (1, 1) ("data", "model") ``DeviceMesh`` of
+    ``launch/mesh.py:make_local_mesh`` on a world-1 NCCL group (NCCL takes
+    one rank per GPU), against the one-device step (``sharded_compare``):
+    zamba2-1.2b at every width, ``ZAMBA2_TRAIN_UNITS`` units (14 of 38
+    layers), 2 x 2048 tokens in two microbatches, remat, AdamW, its bits
+    in bf16 recorded and its step in float32 gated (flash and unmasked
+    gla launched inside the sharded step); then the KDA:MLA recipe at 100m
+    (float32; flash and unmasked delta), 2 x 1024 tokens."""
+    import torch.distributed as dist
+
+    from repro_torch.examples.train_100m import hybrid_lm
+    from repro_torch.launch.mesh import make_local_mesh, mesh_fingerprint
+    from repro_torch.training import (AdamWConfig, DataConfig, SyntheticLM,
+                                      TrainConfig)
+
+    mesh = make_local_mesh("cuda")
+    out = {"mesh": mesh_fingerprint(mesh),
+           "backend": dist.get_backend()}
+    tc = TrainConfig(microbatches=2, adamw=AdamWConfig(
+        lr=3e-4, warmup_steps=2, total_steps=4))
+    cfg = zamba2_config(ZAMBA2_TRAIN_UNITS)
+    params = load_params(torch, dev, cfg, 3)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=2048,
+                                   global_batch=2)).batch(0)
+    need = ("gla_chunked", "flash_attention")
+    out["zamba2_bf16"] = sharded_compare(torch, dev, mesh, cfg, params, tc,
+                                         batch, need, "zamba2 bf16")
+    with torch.no_grad():
+        cfg, params = to_float32(cfg, params)
+    gc_cuda(torch)
+    out["zamba2_f32"] = sharded_compare(torch, dev, mesh, cfg, params, tc,
+                                        batch, need, "zamba2 float32")
+    del params
+    gc_cuda(torch)
+    cfg = hybrid_lm("100m")
+    params = load_params(torch, dev, cfg, 4)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=1024,
+                                   global_batch=2)).batch(0)
+    out["hybrid_f32"] = sharded_compare(
+        torch, dev, mesh, cfg, params, tc, batch,
+        ("delta_chunked", "flash_attention"), "hybrid float32")
+    del params
+    gc_cuda(torch)
+    dist.destroy_process_group()
+    return out
+
+
 _EXTRA_KEYS = ("tflops", "bound_share", "checked", "checked_f32", "shapes",
                "device_ms", "phases_ms", "requests")
 
@@ -4024,6 +4215,14 @@ def main():
               f"{summary['steps'][-1]['time_s']:.2f} s the last step, "
               f"launches {summary['launches']}", flush=True)
     phase("train_more")
+    # the sharded train step on the card's (1, 1) mesh against the
+    # one-device step
+    paths["sharded"] = sharded_train(torch, dev)
+    for tag in ("zamba2_f32", "hybrid_f32"):
+        for name, n in paths["sharded"][tag]["launches_sharded"].items():
+            launches[name] = launches.get(name, 0) + n
+    print(f"sharded: {json.dumps(paths['sharded'])}", flush=True)
+    phase("sharded")
     paths["dryrun"] = dryrun_shares(torch, paths, calib)
     phase("dryrun")
     paths["examples_s"] = run_examples()

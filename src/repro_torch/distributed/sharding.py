@@ -29,7 +29,8 @@ The rules match a leaf by the reference's slash spelling of its path
 
 :func:`to_placements` turns a spec into DTensor placements on a
 ``DeviceMesh``: ``Shard(d)`` on each mesh dim that splits tensor dim ``d``,
-``Replicate()`` on the others.  A dim split over two mesh dims, as
+``Replicate()`` on the others and on a mesh dim of size 1, which splits
+nothing (DTensor cannot reshape away a dim of size 1 marked sharded).  A dim split over two mesh dims, as
 ``("pod", "data")``, is split over the first as the outer factor, which
 is the layout JAX gives it.
 """
@@ -247,7 +248,8 @@ def to_placements(spec, device_mesh) -> tuple:
             raise ValueError(f"spec entry {entry!r} splits a dim in another "
                              f"order than the mesh's {tuple(names)}")
         for i in idx:
-            out[i] = Shard(d)
+            if device_mesh.size(i) > 1:
+                out[i] = Shard(d)
     return tuple(out)
 
 

@@ -15,10 +15,18 @@ plain version and takes its gradient, as the reference's ``custom_vjp``s
 do (``src/repro/kernels/ops.py:55-78, 133-150, 216-233``; no TPU kernel
 has a backward kernel).  The decode, paged and quantize ops are serving
 only and have no backward.
+
+On DTensors (the sharded train step, ``distributed/spmd.py``) the three
+training ops run in a ``local_map`` (:func:`_on_shards`): the batch dim
+over ("pod", "data") and the head dim over "model", where they divide, so
+each rank's kernel (or plain version) sees whole heads of its own batch
+rows; inputs laid out otherwise are redistributed first.  The local
+tensor's device then picks the kernel or the plain version, as above.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import decode_attn as _decode
 from repro_torch.kernels import delta as _delta
@@ -43,6 +51,28 @@ def _run_plain(plain, *inputs):
     this one call, the seam where ``analysis/counting.py`` counts a kernel
     op's bytes at its kernel's boundary while it counts a step."""
     return plain(*inputs)
+
+
+def _on_shards(op, args, n_out: int, **kw):
+    """``op(*args, **kw)`` on each rank's shards of the DTensor ``args``
+    (B, H, ...) (None entries pass through): every input and the ``n_out``
+    outputs are placed with the batch dim over the data axes when it
+    divides them (``batch_pspec``) and the head dim over "model" when every
+    input's heads divide it, else replicated there.  A plain tensor among
+    ``args`` (a zero state built from the global shape) is taken as
+    replicated."""
+    from repro_torch.distributed.local_map import local_map
+    from repro_torch.distributed.sharding import (axis_sizes, batch_pspec,
+                                                  to_placements)
+
+    mesh = args[0].device_mesh
+    model = axis_sizes(mesh).get("model", 1)
+    pl = to_placements((batch_pspec(tuple(args[0].shape), mesh)[0],
+                        "model" if all(a.shape[1] % model == 0 for a in args
+                                       if a is not None) else None), mesh)
+    return local_map(lambda *a: op(*a, **kw), mesh,
+                     tuple(None if a is None else pl for a in args),
+                     (pl,) * n_out)(*args)
 
 
 class RecomputeGrad(torch.autograd.Function):
@@ -118,6 +148,9 @@ def attention(q, k, v, *, causal=True, window=0, scale=None, q_offset=0,
     minus that of k row 0 (the chunked-prefill suffix passes the prior
     length).  The plain version is :func:`attention_plain`."""
     kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+    if isinstance(q, DTensor):
+        return _on_shards(attention, (q, k, v), 1, use_kernel=use_kernel,
+                          **kw)
 
     def plain(q, k, v):
         return attention_plain(q, k, v, **kw)
@@ -130,6 +163,12 @@ def attention(q, k, v, *, causal=True, window=0, scale=None, q_offset=0,
                                       v.contiguous(), **kw)
 
     return RecomputeGrad.apply(kernel, plain, q, k, v)
+
+
+def _training_only(lengths):
+    if lengths is not None:
+        raise NotImplementedError("the sharded scans take no lengths: a "
+                                  "sharded prefill is not ported")
 
 
 def _zeros_state(q, dv):
@@ -146,7 +185,12 @@ def delta(q, k, v, log_a, beta, initial_state=None, *, lengths=None,
     Rows at or past it are neutralized (decay -> 1, k/beta -> 0): in-kernel
     on CUDA, by :func:`delta.mask_padded` before the plain chunked form.
     Without it every row is valid (training): the unmasked kernel, or the
-    plain chunked form alone."""
+    plain chunked form alone, which on DTensors runs on each rank's
+    shards."""
+    if isinstance(q, DTensor):
+        _training_only(lengths)
+        return _on_shards(delta, (q, k, v, log_a, beta, initial_state), 2,
+                          use_kernel=use_kernel)
     if initial_state is None:
         initial_state = _zeros_state(q, v.shape[-1])
     S = q.shape[2]
@@ -185,7 +229,12 @@ def gla(q, k, v, log_a, initial_state=None, *, lengths=None,
     Rows at or past it are neutralized (decay -> 1, k -> 0): in-kernel on
     CUDA, by :func:`gla.mask_padded` before the plain chunked form.
     Without it every row is valid (training): the unmasked kernel, or the
-    plain chunked form alone."""
+    plain chunked form alone, which on DTensors runs on each rank's
+    shards."""
+    if isinstance(q, DTensor):
+        _training_only(lengths)
+        return _on_shards(gla, (q, k, v, log_a, initial_state), 2,
+                          use_kernel=use_kernel)
     if initial_state is None:
         initial_state = _zeros_state(q, v.shape[-1])
     S = q.shape[2]

@@ -13,15 +13,20 @@ reference's launcher passes ``use_kernels=False`` only because its Pallas
 kernels run in slow interpret mode on a CPU; the port's ops follow the
 tensors' device instead, so ``--device cpu`` runs the plain versions and
 computes what the reference's launcher computes, and ``--device cuda`` runs
-the CUDA kernels.  The step runs on this one device, and each checkpoint
-carries that layout's fingerprint, ``data=1xmodel=1``.
+the CUDA kernels.  Without ``--production-mesh`` the step runs on this one
+device, and each checkpoint carries that layout's fingerprint,
+``data=1xmodel=1``.
+
 ``--production-mesh`` builds the (16, 16) ("data", "model") ``DeviceMesh``
-over the process group the caller launched (256 ranks,
+over the process group the caller launched (256 ranks, one per GPU,
 ``launch/mesh.py``; it raises ``RuntimeError`` with another world size)
-and then refuses to train with ``NotImplementedError``: the port has no
-sharded train step (the model runs on plain tensors, not DTensors), and
-256 unsharded replicas writing one checkpoint directory under the mesh's
-fingerprint would claim a layout their params never had.
+and trains on it sharded, as the reference's ``with mesh:`` run of its
+jitted step: every rank draws the same params from seed 0, keeps its
+shard of them and of the AdamW state by the sharding rules with FSDP (the
+reference's ``baseline`` variant), and runs ``TrainLoop`` through
+``distributed/spmd.py``'s sharded step.  Its checkpoints are gathered and
+written by the mesh's rank 0 under ``data=16xmodel=16``; rank 0 prints the
+summary.
 
 Every token architecture trains, the MoE ones (kimi-linear-1t,
 llama4-scout, mixtral-8x22b) on the capacity MoE with its load-balance
@@ -40,7 +45,8 @@ import tempfile
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.distributed.sharding import abstract_mesh
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import AbstractMesh, abstract_mesh
 from repro_torch.launch.mesh import make_production_mesh, mesh_fingerprint
 from repro_torch.models import Model
 from repro_torch.params import init_params
@@ -70,14 +76,15 @@ def main(argv=None):
     if args.production_mesh:
         mesh = make_production_mesh(
             device_type=torch.device(args.device).type)
-        raise NotImplementedError(
-            f"the production mesh {mesh_fingerprint(mesh)} is built, but "
-            f"the port has no sharded train step: it trains on one device "
-            f"(run without --production-mesh)")
-    return _train(args, abstract_mesh((1, 1), ("data", "model")))
+    else:
+        mesh = abstract_mesh((1, 1), ("data", "model"))
+    return _train(args, mesh)[0]
 
 
 def _train(args, mesh):
+    """Train as ``args`` say on ``mesh``: an ``AbstractMesh`` (one device)
+    or a ``DeviceMesh`` (sharded, every rank of it calling).  Returns (the
+    summary, the trained params)."""
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     device = torch.device(args.device)
     model = Model(cfg, use_kernels=True, remat=True)
@@ -92,13 +99,18 @@ def _train(args, mesh):
         checkpoint_dir=args.ckpt_dir)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=args.seq, global_batch=args.batch))
+    opt_state = init_opt_state(params, tc)
+    if not isinstance(mesh, AbstractMesh):
+        params = spmd.shard_params(params, mesh, fsdp=True)
+        opt_state = spmd.shard_opt_state(opt_state, mesh, fsdp=True)
     loop = TrainLoop(model, tc, data, mesh_fingerprint=mesh_fingerprint(mesh))
-    _, _, hist = loop.run(params, init_opt_state(params, tc), args.steps)
+    params, _, hist = loop.run(params, opt_state, args.steps)
     summary = {"first_loss": hist[0]["loss"], "final_loss": hist[-1]["loss"],
                "steps": len(hist),
                "mean_step_s": sum(h["time_s"] for h in hist) / len(hist)}
-    print(json.dumps(summary, indent=1))
-    return summary
+    if spmd.writes_here(params):
+        print(json.dumps(summary, indent=1))
+    return summary, params
 
 
 if __name__ == "__main__":

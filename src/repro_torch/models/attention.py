@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import AttentionSpec
+from repro_torch.distributed.local_map import contiguous_grad, splittable
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, rms_norm
 
@@ -68,12 +69,13 @@ def _lin(p, x):
 
 def _split_heads(x, H, D):
     B, S, _ = x.shape
-    return x.reshape(B, S, H, D).transpose(1, 2)              # (B,H,S,D)
+    return contiguous_grad(splittable(x, H).reshape(B, S, H, D)).transpose(
+        1, 2)                                                 # (B,H,S,D)
 
 
 def _merge_heads(x):
     B, H, S, D = x.shape
-    return x.transpose(1, 2).reshape(B, S, H * D)
+    return contiguous_grad(x.transpose(1, 2).reshape(B, S, H * D), H)
 
 
 # ---------------------------------------------------------------- GQA
@@ -272,7 +274,7 @@ def _mha_kv(p, spec: AttentionSpec, ckv, kpe):
     """Decompress latents (B,S,R) + rope keys (B,S,Rp) to MHA K and V."""
     B, S, _ = ckv.shape
     D, Rp, Hkv = spec.head_dim, spec.mla_rope_dim, spec.kv_heads
-    kv = _lin(p["wkv_b"], ckv).reshape(B, S, Hkv, 2 * D).transpose(1, 2)
+    kv = _split_heads(_lin(p["wkv_b"], ckv), Hkv, 2 * D)
     k_nope, v = kv[..., :D], kv[..., D:]
     k = torch.cat([k_nope, kpe[:, None].expand(B, Hkv, S, Rp)], dim=-1)
     return k, v

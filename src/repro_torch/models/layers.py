@@ -200,6 +200,59 @@ def moe_aux_loss(p, x, spec: FFNSpec):
     return spec.num_experts * torch.sum(onehot.mean(0) * probs.mean(0))
 
 
+def moe_train(p, x, spec: FFNSpec, Q: int = 0):
+    """The training MoE: (the capacity MoE's output over token chunks of
+    ``Q`` (:func:`in_token_chunks`), its load-balance loss), on tensors or
+    on DTensors (the sharded train step).
+
+    On DTensors the block runs in a ``local_map`` with the reference's
+    global dispatch: the tokens are gathered over every mesh axis, so the
+    capacity, the slot order and the aux loss are those of the whole batch
+    on every rank, as GSPMD computes them; the expert and shared ``d_ff``
+    stay over "model" (the rules' placements, FSDP's "data" gathered), so
+    each rank's output is a ``Partial`` sum over "model" (and the tokens'
+    and router's gradients too), which the residual add reduces.  Where a
+    ``d_ff`` leaf does not divide "model", every weight is replicated and
+    the output is whole.  The aux loss runs in a second ``local_map`` on
+    the same gathered tokens, whole on every rank."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return in_token_chunks(apply_moe, p, x, spec, Q), moe_aux_loss(
+            p, x, spec)
+    from torch.distributed.tensor import Partial, Replicate
+
+    from repro_torch.distributed.local_map import local_map
+    from repro_torch.distributed.sharding import (leaf_name, param_pspec,
+                                                  to_placements)
+    from repro_torch.models.tree import (tree_leaves, tree_map,
+                                        tree_map_with_path)
+
+    mesh = x.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    names = []
+    tree_map_with_path(lambda path, _: names.append(leaf_name(path)), p)
+    leaves = tree_leaves(p)
+    specs = [param_pspec("ffn/" + n, tuple(w.shape), mesh)
+             for n, w in zip(names, leaves)]
+    tp = all("model" in sp for n, sp in zip(names, specs) if n != "router")
+    pls = [to_placements(sp, mesh) if tp else rep for sp in specs]
+    part = tuple(Partial() if tp and n == "model" else Replicate()
+                 for n in mesh.mesh_dim_names)
+    xg = x.redistribute(mesh, rep)
+
+    def routed(xl, *ws):
+        it = iter(ws)
+        return in_token_chunks(apply_moe, tree_map(lambda _: next(it), p),
+                               xl, spec, Q)
+
+    out = local_map(routed, mesh, (rep, *pls), (part,), (part, *(
+        part if n == "router" else pl for n, pl in zip(names, pls))))(
+        xg, *leaves)
+    aux = local_map(lambda xl, r: moe_aux_loss({"router": r}, xl, spec),
+                    mesh, (rep, rep), (rep,))(xg, p["router"])
+    return out.redistribute(mesh, x.placements), aux
+
+
 def apply_moe_decode(p, x, spec: FFNSpec):
     """The dropless top-k MoE of :func:`apply_moe_dropless` for decode,
     with no host sync, so a CUDA graph can capture it: every expert runs

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LinearSpec
+from repro_torch.distributed.local_map import contiguous_grad, splittable
 from repro_torch.kernels import ops
 from repro_torch.models.layers import causal_conv1d, rms_norm
 
@@ -30,12 +31,13 @@ def _check(spec: LinearSpec):
 
 def _heads(x, H, D):
     B, S, _ = x.shape
-    return x.reshape(B, S, H, D).transpose(1, 2)
+    return contiguous_grad(splittable(x, H).reshape(B, S, H, D)).transpose(
+        1, 2)
 
 
 def _unheads(x):
     B, H, S, D = x.shape
-    return x.transpose(1, 2).reshape(B, S, H * D)
+    return contiguous_grad(x.transpose(1, 2).reshape(B, S, H * D), H)
 
 
 def _l2norm(x, eps=1e-6):

@@ -48,8 +48,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import linear_attention as lin_mod
 from repro_torch.models.layers import (apply_ffn, apply_moe,
                                        apply_moe_decode, apply_moe_dropless,
-                                       in_token_chunks, moe_aux_loss,
-                                       rms_norm)
+                                       in_token_chunks, moe_train, rms_norm)
 from repro_torch.models.perf_flags import PerfFlags
 from repro_torch.models.tree import tree_map, tree_map_named
 
@@ -220,9 +219,8 @@ class Model:
         if f.kind != "moe":
             return self._ffn(spec, p, x), aux
         h = rms_norm(x, p["ln2"], self.cfg.norm_eps)
-        return (x + in_token_chunks(apply_moe, p["ffn"], h, f,
-                                    self.perf.moe_chunk_tokens),
-                aux + moe_aux_loss(p["ffn"], h, f))
+        out, a = moe_train(p["ffn"], h, f, self.perf.moe_chunk_tokens)
+        return x + out, aux + a
 
     def _apply_block(self, spec: BlockSpec, p, x, positions, lengths,
                      cache=None, *, causal=True, enc_out=None):

@@ -13,9 +13,12 @@ what the model computes.  Two flags change the MoE, as in the reference:
     chunk's capacity is that of ``moe_chunk_tokens`` tokens.
 The reference's other flags (``shard_moe_tokens``, ``sequence_parallel``,
 ``shard_attention``) only place activations on a mesh through sharding
-constraints; the port runs on plain tensors, so they have no counterpart,
-and neither has its ``seqpar`` variant, which adds only one of them to
-``moe_shard``.  The defaults are the paper-faithful baseline.
+constraints.  The port's sharded train step (``distributed/spmd.py``)
+places only params, optimizer state and batch, and lets DTensor place
+the activations by propagation (the kernel ops and the MoE state theirs
+in ``local_map``s), so those flags have no counterpart, and neither has
+the ``seqpar`` variant, which adds only one of them to ``moe_shard``.
+The defaults are the paper-faithful baseline.
 """
 from __future__ import annotations
 

@@ -13,7 +13,10 @@ format (it does not read the reference's checkpoints):
   * writes go to ``<dir>/tmp-<step>-<pid>`` and are published by an atomic
     ``rename`` to ``step-<n>``: a crash mid-write never leaves a partial
     checkpoint under a step name;
-  * a retention policy keeps the newest ``keep`` checkpoints.
+  * a retention policy keeps the newest ``keep`` checkpoints;
+  * a sharded tree (DTensor leaves, ``distributed/spmd.py``) is gathered
+    whole by every rank before the writer starts, and only the mesh's rank
+    0 writes; ``restore(shardings=)`` re-shards it onto any mesh.
 """
 from __future__ import annotations
 
@@ -26,13 +29,19 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.spmd import writes_here
 from repro_torch.models.tree import tree_flatten_with_path, tree_map
 
 def _to_host(x):
-    """A leaf as (numpy array that owns its bytes, dtype name)."""
+    """A leaf as (numpy array that owns its bytes, dtype name); a DTensor
+    leaf is gathered whole first (a collective: every rank of its mesh
+    calls it)."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
         name = str(x.dtype).removeprefix("torch.")
         if x.dtype == torch.bfloat16:
             x = x.view(torch.int16)
@@ -76,8 +85,12 @@ class CheckpointManager:
     def save(self, step: int, tree, mesh_fingerprint: str = "",
              blocking: bool = True):
         """Snapshot ``tree`` to host memory now, then write it (on a
-        background thread unless ``blocking``)."""
+        background thread unless ``blocking``).  A tree of DTensors is
+        gathered on every rank of its mesh, synchronously, and written by
+        the mesh's rank 0 alone."""
         host = {path: _to_host(x) for path, x in tree_flatten_with_path(tree)}
+        if not writes_here(tree):
+            return
 
         def _write():
             tmp = os.path.join(self.dir, f"tmp-{step}-{os.getpid()}")

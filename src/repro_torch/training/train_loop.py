@@ -31,7 +31,9 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import spmd
 from repro_torch.distributed.collectives import (compress_grads_with_feedback,
                                                  zeros_like_residuals)
 from repro_torch.models.model import Model
@@ -54,36 +56,49 @@ class TrainConfig:
     straggler_factor: float = 3.0     # step slower than EWMA x this => flag
 
 
+def _like_param(g, p):
+    """The gradient ``g`` of ``p`` laid out as ``p``: zeros where no path
+    reaches ``p``; a DTensor gradient brought to its param's placements
+    (FSDP's reduce-scatter, data parallelism's all-reduce)."""
+    if g is None:
+        return torch.zeros_like(p)
+    if isinstance(p, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def loss_and_grads(model: Model, params, batch):
     """(loss, metrics, grads) of ``model.train_loss`` on ``batch``; the
-    grads form a tree like ``params``, in each leaf's dtype (a leaf no
-    path reaches gets zeros)."""
+    grads form a tree like ``params``, in each leaf's dtype and layout (a
+    leaf no path reaches gets zeros)."""
     leaves = tree_leaves(params)
     loss, metrics = model.train_loss(params, batch)
     got = torch.autograd.grad(loss, leaves, allow_unused=True)
-    it = iter(g if g is not None else torch.zeros_like(p)
-              for g, p in zip(got, leaves))
+    it = iter(_like_param(g, p) for g, p in zip(got, leaves))
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_map(lambda _: next(it), params))
 
 
-def make_train_step(model: Model, cfg: TrainConfig):
+def make_train_step(model: Model, cfg: TrainConfig, place=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics).  ``params``' leaves must require grad
     (``params.requires_grad``); the batch's first axis must divide by
-    ``cfg.microbatches``."""
+    ``cfg.microbatches``.  ``place(microbatch) -> microbatch`` lays each
+    microbatch's tensors out for the step: onto the params' device unless
+    given (the sharded step, ``distributed/spmd.py``, shards them)."""
 
     def train_step(params, opt_state, batch):
         device = tree_leaves(params)[0].device
-        batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        put = place or (lambda b: {k: v.to(device) for k, v in b.items()})
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
         n = cfg.microbatches
         if n > 1:
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             loss = 0.0
             for i in range(n):
-                mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
-                      for k, v in batch.items()}
+                mb = put({k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+                          for k, v in batch.items()})
                 l_i, _, g_i = loss_and_grads(model, params, mb)
                 for acc, g in zip(tree_leaves(grads), tree_leaves(g_i)):
                     acc.add_(g)
@@ -93,7 +108,7 @@ def make_train_step(model: Model, cfg: TrainConfig):
                 acc.div_(n)
             loss = loss / n
         else:
-            loss, _, grads = loss_and_grads(model, params, batch)
+            loss, _, grads = loss_and_grads(model, params, put(batch))
 
         if cfg.compress_grads:
             grads, residuals = compress_grads_with_feedback(
@@ -129,16 +144,27 @@ class TrainLoop:
             start_step: Optional[int] = None):
         """Train from the latest checkpoint (or ``start_step``, or 0) to
         ``num_steps``.  Returns (params, opt_state, history), one
-        ``{"step", "loss", "time_s", "grad_norm"}`` per step run."""
-        step_fn = make_train_step(self.model, self.cfg)
+        ``{"step", "loss", "time_s", "grad_norm"}`` per step run.  Params
+        and state as DTensors placed by the rules with FSDP (the
+        launcher's layout, ``distributed/spmd.py``) take the sharded step,
+        and a checkpoint restores onto their placements; every rank of the
+        mesh runs this together."""
+        sharded = spmd.is_sharded(params)
+        if sharded:
+            step_fn = spmd.make_sharded_train_step(
+                self.model, self.cfg, tree_leaves(params)[0].device_mesh)
+        else:
+            step_fn = make_train_step(self.model, self.cfg)
         ckpt = CheckpointManager(self.cfg.checkpoint_dir,
                                  keep=self.cfg.keep_checkpoints)
 
         if start_step is None:
             start_step = 0
             if ckpt.latest_step() is not None:
+                like = {"params": params, "opt": opt_state}
                 restored, manifest = ckpt.restore(
-                    {"params": params, "opt": opt_state})
+                    like, shardings=spmd.layout_of(like) if sharded
+                    else None)
                 params, opt_state = restored["params"], restored["opt"]
                 start_step = manifest["step"]
         requires_grad(params)
@@ -172,4 +198,8 @@ class TrainLoop:
                           self.mesh_fingerprint,
                           blocking=not self.cfg.checkpoint_async)
         ckpt.wait()
+        if sharded:
+            # the writer's last checkpoint is published before any rank
+            # goes on (a run that follows reads the latest step)
+            torch.distributed.barrier()
         return params, opt_state, history

@@ -12,7 +12,8 @@ process group (``torch.testing``'s ``FakeStore``, no communication):
     with the local shapes its specs give (``restore(shardings=)``);
   * ``make_local_mesh`` builds the 1 x 1 ("data", "model") mesh;
   * on 256 ranks the train launcher's ``--production-mesh`` builds the
-    (16, 16) mesh and refuses to train, writing nothing.
+    (16, 16) mesh and trains on it through the sharded step, every param
+    in its rule's placements.
 """
 import math
 
@@ -31,6 +32,7 @@ from repro_torch.analysis import roofline
 from repro_torch.configs import get_smoke_config
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch.mesh import make_local_mesh, mesh_fingerprint
+from repro_torch.models.tree import tree_leaves
 from repro_torch.params import init_params
 from repro_torch.training import CheckpointManager
 
@@ -236,19 +238,46 @@ def test_make_local_mesh_cpu():
         dist.destroy_process_group()
 
 
-def test_train_cli_production_mesh_builds_then_refuses(tmp_path):
-    """The port has no sharded train step: the launcher builds the
-    production mesh on its 256 ranks, then refuses before it draws a
-    param or writes a checkpoint."""
+def test_train_cli_production_mesh_trains_sharded(tmp_path, monkeypatch):
+    """On 256 ranks the train launcher's ``--production-mesh`` builds the
+    (16, 16) mesh and reaches the sharded step at smoke size: every param
+    the step gets is a DTensor in its rule's placements with FSDP, and rank
+    0 writes the checkpoint under the mesh's fingerprint.  The fake group
+    moves no data, so no number is checked."""
+    import json
+
+    from repro_torch.distributed import spmd
     from repro_torch.launch import train as train_cli
+
+    seen = []
+    sharded_step = spmd.make_sharded_train_step
+
+    def spy(model, tc, mesh, fsdp=True):
+        step = sharded_step(model, tc, mesh, fsdp)
+
+        def traced(params, state, batch):
+            seen.append((mesh_fingerprint(mesh), fsdp, params))
+            return step(params, state, batch)
+        return traced
+
+    monkeypatch.setattr(spmd, "make_sharded_train_step", spy)
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=256)
     try:
-        with pytest.raises(NotImplementedError,
-                           match="data=16xmodel=16 is built"):
-            train_cli.main(["--arch", "zamba2-1.2b", "--smoke", "--device",
-                            "cpu", "--production-mesh",
-                            "--ckpt-dir", str(tmp_path / "c")])
+        summary = train_cli.main([
+            "--arch", "zamba2-1.2b", "--smoke", "--device", "cpu",
+            "--production-mesh", "--steps", "1", "--batch", "16",
+            "--seq", "16", "--ckpt-dir", str(tmp_path / "c")])
+        fingerprint, fsdp, params = seen[0]
+        mesh = tree_leaves(params)[0].device_mesh
+        specs = sh.params_shardings(params, mesh, fsdp=True)
+        for leaf, spec in _leaves(params, specs):
+            assert isinstance(leaf, DTensor)
+            assert tuple(leaf.placements) == sh.to_placements(spec, mesh)
     finally:
         dist.destroy_process_group()
-    assert not (tmp_path / "c").exists()
+    assert summary["steps"] == 1 and len(seen) == 1
+    assert fingerprint == "data=16xmodel=16" and fsdp
+    manifest = tmp_path / "c" / "step-00000001" / "manifest.json"
+    assert json.loads(manifest.read_text())["mesh"] == "data=16xmodel=16"
+

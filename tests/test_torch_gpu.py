@@ -1584,3 +1584,75 @@ def test_moe_capacity_is_repeatable(cuda):
             loss, [x, *p.values()])])
     for run in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+
+
+@pytest.fixture
+def card_mesh(cuda):
+    """The (1, 1) ("data", "model") mesh of one card, on a world-1 NCCL
+    group, destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh("cuda")
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _sharded_case(name):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples.train_100m import hybrid_lm
+    if name == "hybrid":
+        return hybrid_lm("100m"), ("delta_chunked", "flash_attention")
+    cfg = get_config("zamba2-1.2b")
+    cfg = dataclasses.replace(cfg, dtype="float32", groups=(
+        dataclasses.replace(cfg.groups[0], repeats=1),) + cfg.groups[1:])
+    return cfg, ("gla_chunked", "flash_attention")
+
+
+@pytest.mark.parametrize("name", ["zamba2", "hybrid"])
+def test_sharded_step_matches_one_device(card_mesh, name):
+    """One step of ``spmd.make_sharded_train_step`` on the card's (1, 1)
+    mesh against one of the one-device ``make_train_step``, from the same
+    params and batch, float32, two microbatches of 1 x 512 tokens:
+    zamba2-1.2b at every width, one [5 x Mamba2, shared block] unit and
+    its tail, and the KDA:MLA recipe at 100m.  The loss and grad norm
+    within 1e-5 relative and every param within 1e-4 abs / 1e-3 rel (as
+    ``tests/test_torch_train_step.py``); the scan and flash kernels
+    launched inside the sharded step."""
+    from repro_torch.distributed import spmd
+    from repro_torch.models import Model
+    from repro_torch.models.tree import tree_flatten_with_path, tree_map
+    from repro_torch.params import init_params, requires_grad
+    from repro_torch.training import (AdamWConfig, DataConfig, SyntheticLM,
+                                      TrainConfig, init_opt_state,
+                                      make_train_step)
+
+    cfg, need = _sharded_case(name)
+    dev = torch.device("cuda")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tc = TrainConfig(microbatches=2, adamw=AdamWConfig(
+        lr=1e-3, warmup_steps=2, total_steps=20))
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=512,
+                                   global_batch=2)).batch(0)
+    model = Model(cfg, remat=True)
+    sharded = tree_map(lambda x: x.clone(), params)
+    one = requires_grad(params)
+    one, _, m_one = make_train_step(model, tc)(
+        one, init_opt_state(one, tc), batch)
+    state = spmd.shard_opt_state(init_opt_state(sharded, tc), card_mesh)
+    sharded = requires_grad(spmd.shard_params(sharded, card_mesh))
+    build.reset_launches()
+    sharded, _, m_sh = spmd.make_sharded_train_step(model, tc, card_mesh)(
+        sharded, state, batch)
+    torch.cuda.synchronize()
+    for kernel in need:
+        assert build.LAUNCHES.get(kernel, 0) > 0, kernel
+    for key in ("loss", "grad_norm", "lr"):
+        assert float(m_sh[key]) == pytest.approx(float(m_one[key]),
+                                                 rel=1e-5), key
+    got = dict(tree_flatten_with_path(spmd.gather_tree(sharded)))
+    for path, want in tree_flatten_with_path(one):
+        torch.testing.assert_close(got[path].detach(), want.detach(),
+                                   atol=1e-4, rtol=1e-3, msg=path)

@@ -213,8 +213,11 @@ def test_which_archs_run_paged_prefill(arch, paged_prefill):
 
 
 def _port_sources():
+    """The port's modules (``distributed/spmd.py`` among them),
+    ``chip_smoke.py``, and the rank worker of ``tests/test_torch_spmd.py``,
+    whose ranks must run without JAX."""
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_spmd_rank.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -239,6 +242,7 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.paged_decode_attn, "
             "repro_torch.kernels.paged_prefill_attn, repro_torch.training, "
             "repro_torch.distributed.collectives, repro_torch.launch.train, "
+            "repro_torch.distributed.spmd, "
             "repro_torch.examples.train_100m; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
